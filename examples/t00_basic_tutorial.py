@@ -25,7 +25,7 @@ def main():
     print("closed loop: |x_25 - xr| =",
           round(float(np.linalg.norm(x - st["xr"])), 6))
 
-    # --- batched fleet solve (the TPU-native axis) ---
+    # --- batched fleet solve (the batch axis the device runs in parallel) ---
     Bsz = 512
     rng = np.random.default_rng(0)
     X0 = st["x"][None, :] * rng.uniform(-2, 2, (Bsz, 1))
@@ -35,4 +35,6 @@ def main():
 
 
 if __name__ == "__main__":
+    import jax
+    jax.config.update("jax_enable_x64", True)   # precision='double'
     main()

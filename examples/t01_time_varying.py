@@ -36,4 +36,6 @@ def main():
 
 
 if __name__ == "__main__":
+    import jax
+    jax.config.update("jax_enable_x64", True)   # precision='double'
     main()

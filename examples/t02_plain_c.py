@@ -58,5 +58,7 @@ def embedded_tour():
 
 
 if __name__ == "__main__":
+    import jax
+    jax.config.update("jax_enable_x64", True)   # precision='double'
     main()
     embedded_tour()

@@ -1,5 +1,5 @@
 """t04 — development workflow (analogue of
-examples/t04_dev_solver_versions.m): compare a batched TPU solver against
+examples/t04_dev_solver_versions.m): compare a batched solver against
 its dense numpy oracle mirror, the differential pattern every in-repo
 formulation follows."""
 
@@ -20,7 +20,7 @@ def main():
     u_o, k_o, e_o, sol_o = laxmpc_admm_oracle(
         sys, param, st["x"], st["xr"], st["ur"], **opts)
 
-    print("iterations: tpu", int(res.k[0]), " oracle", k_o)
+    print("iterations: solver", int(res.k[0]), " oracle", k_o)
     for key in ("z", "v", "lam"):
         gap = float(np.max(np.abs(np.asarray(res.sol[key][0])
                                   - sol_o[key])))
@@ -28,4 +28,6 @@ def main():
 
 
 if __name__ == "__main__":
+    import jax
+    jax.config.update("jax_enable_x64", True)   # precision='double'
     main()

@@ -2,7 +2,7 @@
 shifted warm start.
 
 The reference's closed-loop demos step host <-> solver once per control
-period (examples/cl_in_C/main_cl_in_C.c:60-115). TPU-natively the whole
+period (examples/cl_in_C/main_cl_in_C.c:60-115). Here the whole
 receding-horizon loop — solve, apply u0, propagate, warm-start the next
 solve — runs as ONE jitted lax.scan over control steps, batched over
 thousands of independent loops, with zero host round trips.

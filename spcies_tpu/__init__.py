@@ -1,15 +1,15 @@
-"""spcies_tpu — TPU-native batched MPC solve engine.
+"""spcies_tpu — batched MPC solve engine for accelerators.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the
-GepocUS/Spcies toolbox (reference: /root/reference, v0.3.11): first-order QP
-solvers (ADMM, EADMM, SADMM, FISTA) for the laxMPC, equMPC, MPCT, ellipMPC,
-HMPC and ellipHMPC model predictive control formulations.
+A JAX/XLA framework with the capabilities of the GepocUS/Spcies toolbox
+(v0.3.11): first-order QP solvers (ADMM, EADMM, SADMM, FISTA) for the
+laxMPC, equMPC, MPCT, ellipMPC, HMPC and ellipHMPC model predictive control
+formulations.
 
 Where the reference generates specialized embedded C per problem
 (spcies_gen_controller.m), this framework computes the same solver
-"ingredients" offline in fp64 numpy and traces the iteration into fused
-XLA/Pallas programs batched over thousands of independent MPC scenarios,
-sharded across TPU meshes.
+"ingredients" offline in fp64 numpy and traces the iteration into XLA
+programs batched over thousands of independent MPC scenarios, sharded
+across device meshes.
 
 Public API:
     make_solver(sys, param, formulation=..., method=..., submethod=...,

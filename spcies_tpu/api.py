@@ -1,6 +1,6 @@
 """Public entry point: make_solver — the analogue of the reference's
 spcies_gen_controller.m "generate a solver" flow, except the product is a
-jit-compiled batched TPU solve function instead of a C file.
+jit-compiled batched solve function instead of a C file.
 
 The (formulation, method, submethod) -> builder dispatch mirrors the
 reference's name-mangled `cons_*` eval dispatch
@@ -136,8 +136,8 @@ class BatchedSolver:
     def __call__(self, *inputs, init=None, fixed_iters=None):
         # Phase timing (Options.timing, the reference's MEASURE_TIME
         # contract: update/solve/polish/run ms stamps around the solve —
-        # snippets/get_elapsed_time.c:12-15, docs/timing.md). On TPU the
-        # hot loop is one device dispatch, so 'solve' wraps dispatch +
+        # snippets/get_elapsed_time.c:12-15, docs/timing.md). The hot loop
+        # is one device dispatch, so 'solve' wraps dispatch +
         # block_until_ready; timing=False keeps dispatch fully async.
         timer = None
         if self.options.timing:
@@ -159,17 +159,16 @@ class BatchedSolver:
                                   core_ndims=self.input_core_ndims)
         if timer is not None:
             timer.mark("update")
-        # TPU's default matmul precision truncates fp32 operands to
-        # bfloat16; any solver matmul with O(1) operands (e.g. HMPC's
-        # z @ C') then floors the residual at ~1e-3 and the iteration
-        # never meets tol. Force full-f32 matmuls at trace time — the
-        # explicit bf16 fast paths (bf16_delta) cast their operands
-        # themselves and are unaffected.
-        import jax as _jax
-        with _jax.default_matmul_precision("highest"):
+        # Full-f32 products at trace time: at the default precision a GPU
+        # may run an f32 product in TF32 (about three decimal digits), and
+        # any solver matmul with O(1) operands (e.g. HMPC's z @ C') then
+        # floors the residual near 1e-3, so the iteration never meets tol.
+        # The delta-form products (solvers.common.delta_dot) pin full f32
+        # themselves; only bf16_delta asks for bf16 operands.
+        with jax.default_matmul_precision("highest"):
             res = self._jitted(*inputs, init, fixed_iters)
         if timer is not None:
-            res = _jax.block_until_ready(res)
+            res = jax.block_until_ready(res)
             timer.mark("solve")
         if self.options.in_engineering:
             # de-scale the control move (code_laxMPC_ADMM_C.c:642-651);
@@ -190,10 +189,9 @@ class BatchedSolver:
         """AOT-compile the solve for the given (shapes of the) inputs and
         return XLA's memory analysis as a dict of byte counts
         (argument/output/temp/generated-code; peak = arg + out + temp -
-        aliased). This is the measured-memory contract behind the O(N)
-        long-horizon claims (BENCH_LONGN) — a compile-time number from the
-        real executable, not a count of ingredient array sizes. Returns
-        None when the backend does not expose memory_analysis."""
+        aliased) — a compile-time number from the real executable, not a
+        count of ingredient array sizes. Returns None when the backend
+        does not expose memory_analysis."""
         if len(inputs) < self.n_inputs:
             inputs = inputs + self.default_inputs[
                 -(self.n_inputs - len(inputs)):]
@@ -201,10 +199,7 @@ class BatchedSolver:
                                   core_ndims=self.input_core_ndims)
         with jax.default_matmul_precision("highest"):
             lowered = self._jitted.lower(*inputs, init, fixed_iters)
-        try:
-            ma = lowered.compile().memory_analysis()
-        except Exception:
-            return None
+        ma = lowered.compile().memory_analysis()
         if ma is None:
             return None
         try:
@@ -226,12 +221,15 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
                 method: str = "", submethod: str = "",
                 options: Options | dict | None = None,
                 backend: str = "dense", **solver_overrides) -> BatchedSolver:
-    """Build a batched TPU solver for the given system + MPC parameters.
+    """Build a batched solver for the given system + MPC parameters.
 
     sys:   dict with A, B, LBx, UBx, LBu, UBu (reference `sys` struct)
     param: dict with the formulation's ingredients (Q, R, N, ...; reference
            `param` struct). If formulation is omitted it is auto-detected
            from the param fields (+sp_utils/determine_formulation.m).
+    backend: one of the triple's backends (builder.backends: 'dense';
+           'banded' where the triple has an O(N) path), or 'auto' to pick
+           by a probe.
     """
     if not formulation and (options is None
                             or isinstance(options, dict)
@@ -255,18 +253,19 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
         opt.solver.update(solver_overrides)
         opt.resolve()
 
-    if backend == "fused" and opt.debug:
-        # genHist-style traces (debug=1/2) are recorded by the XLA masked
-        # loop (solvers/loop.py); the fused VMEM-resident Pallas kernels
-        # run the whole iteration on-chip and return only the exit state,
-        # so per-iteration history is structurally unavailable there
-        # (documented in docs/options.md)
+    if opt.precision == "double" and not jax.config.jax_enable_x64:
         raise ValueError(
-            "debug traces (genHist) are not available on backend='fused' "
-            "— the VMEM-resident kernel returns only the exit state; use "
-            "backend='dense' (or 'banded') for debug=1/2 runs")
+            "precision='double' needs 64-bit floats, which JAX has off: "
+            "enable them with jax.config.update('jax_enable_x64', True) "
+            "(or JAX_ENABLE_X64=1) before building the solver, or pass "
+            "precision='float'")
     from spcies_tpu.formulations.base import get_builder
     builder = get_builder(opt.formulation, opt.method, opt.submethod)
+    if backend != "auto" and backend not in builder.backends:
+        raise ValueError(
+            f"{opt.formulation}/{opt.method}"
+            f"{'-' + opt.submethod if opt.submethod else ''} has no backend "
+            f"{backend!r}; its backends are {builder.backends} (or 'auto')")
     if backend == "auto":
         solver = _auto_backend(builder, sys, param, opt)
     else:
@@ -278,10 +277,11 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
 
 def _auto_cache_path():
     import os
+    from spcies_tpu.utils.compile_cache import CHECKOUT
     root = os.environ.get(
         "SPCIES_AUTO_CACHE_DIR",
         os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                       os.path.expanduser("~/.cache/jax_spcies")))
+                       os.path.join(CHECKOUT, ".jax_cache")))
     return os.path.join(root, "spcies_auto_backend.json")
 
 
@@ -291,11 +291,8 @@ def _auto_cache_load():
     path = _auto_cache_path()
     if not os.path.exists(path):
         return {}
-    try:
-        with open(path) as f:
-            return json.load(f)
-    except Exception:
-        return {}
+    with open(path) as f:
+        return json.load(f)
 
 
 def _auto_cache_store(key, backend):
@@ -304,39 +301,56 @@ def _auto_cache_store(key, backend):
     path = _auto_cache_path()
     cache = _auto_cache_load()
     cache[key] = backend
-    try:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + f".tmp{os.getpid()}"
-        with open(tmp, "w") as f:
-            json.dump(cache, f, indent=0, sort_keys=True)
-        os.replace(tmp, path)
-    except Exception:
-        pass     # cache is an optimization; never fail the build on it
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(cache, f, indent=0, sort_keys=True)
+    os.replace(tmp, path)
+
+
+def _probe_inputs(solver, probe_b):
+    """Zero inputs of the probe batch for every input with a unit kind;
+    trailing unit-less inputs (e.g. the soc runtime radius) take their
+    registered defaults."""
+    inputs = []
+    for kind in solver.input_kinds:
+        if kind in ("x", "xa"):
+            dim = solver.n
+        elif kind in ("u", "ua"):
+            dim = solver.m
+        elif kind == "xu":
+            dim = solver.n + solver.m
+        else:
+            break
+        inputs.append(np.zeros((probe_b, dim), solver.dtype))
+    missing = solver.n_inputs - len(inputs)
+    return inputs + [
+        jnp.broadcast_to(jnp.asarray(d, solver.dtype),
+                         (probe_b,) + np.shape(d))
+        for d in solver.default_inputs[len(solver.default_inputs)
+                                       - missing:]]
 
 
 def _auto_backend(builder, sys, param, opt) -> BatchedSolver:
-    """backend='auto': build every available backend for the triple and
-    pick the fastest by a short on-device probe (fixed-iteration batched
-    solve, compile excluded). Exists because no static rule wins
-    everywhere: the fused VMEM-resident kernels dominate at the N=30
-    headline but lose to the dense XLA loop at tiny nz (the 128-lane
-    padding penalty, e.g. nz=80 -> 37% dead lanes at the N=10 reference
-    fixture), and the O(N) banded paths only pay off at long horizons.
-    Probe knobs (solver options): auto_probe_batch (default 2048),
-    auto_probe_iters (50), auto_probe_reps (3). The winning backend name
-    lands in solver.backend_choice; per-candidate probe times in
+    """backend='auto': build each backend the triple has (builder.backends)
+    and pick the fastest by a short on-device probe (fixed-iteration
+    batched solve, compile excluded). The dense affine map wins at short
+    horizons and the O(N) banded paths pay off at long ones; where the
+    crossover lies depends on the device. Probe knobs (solver options):
+    auto_probe_batch (default 2048), auto_probe_iters (50),
+    auto_probe_reps (3). The winning backend name lands in
+    solver.backend_choice; per-candidate probe times in
     solver.backend_probe_s.
 
-    The decision is PERSISTED on disk next to the XLA compile cache
-    (VERDICT r4 next-#7), keyed by (triple, problem dims, chip kind,
-    probe config): a second make_solver(..., backend='auto') for the same
-    shape — even in a fresh process — builds only the winning backend and
-    skips the probe entirely (solver.backend_probe_cached = True). Set
+    The decision is persisted on disk, keyed by (triple, problem dims,
+    device kind, probe config): a second make_solver(..., backend='auto')
+    for the same shape — even in a fresh process — builds only the winning
+    backend and skips the probe (solver.backend_probe_cached = True). Set
     auto_probe_batch to the production batch size to make the probe match
-    the serving shape; pass auto_probe_refresh=True to force re-probing
-    (the result overwrites the cached entry). Cache file:
-    $SPCIES_AUTO_CACHE_DIR or $JAX_COMPILATION_CACHE_DIR or
-    ~/.cache/jax_spcies, spcies_auto_backend.json."""
+    the serving shape; pass auto_probe_refresh=True to force re-probing.
+    Cache file: $SPCIES_AUTO_CACHE_DIR or $JAX_COMPILATION_CACHE_DIR or
+    <checkout>/.jax_cache, spcies_auto_backend.json. Errors of a build or
+    a probe propagate."""
     import time
     probe_b = int(opt.solver.get("auto_probe_batch", 2048))
     probe_iters = int(opt.solver.get("auto_probe_iters", 50))
@@ -351,81 +365,33 @@ def _auto_backend(builder, sys, param, opt) -> BatchedSolver:
         int(bool(opt.debug)),
         dev.platform, getattr(dev, "device_kind", "?"),
         probe_b, probe_iters, probe_reps)))
-    if not opt.solver.get("auto_probe_refresh", False):
-        cached = _auto_cache_load().get(key)
-        # never serve a cached 'fused' winner to a debug build — genHist
-        # traces are structurally unavailable on the fused kernels, which
-        # is exactly why the probe path excludes them under debug
-        if cached == "fused" and opt.debug:
-            cached = None
-        if cached is not None:
-            try:
-                solver = builder(sys, param, opt, backend=cached)
-            except Exception:
-                solver = None
-            if solver is not None:
-                solver.backend_choice = cached
-                solver.backend_probe_s = {}
-                solver.backend_probe_cached = True
-                return solver
-
-    candidates = {}
-    for be in ("dense", "fused", "banded"):
-        if be == "fused" and opt.debug:
-            continue    # genHist traces are unavailable on fused
-        try:
-            candidates[be] = builder(sys, param, opt, backend=be)
-        except Exception:
-            continue
-    if not candidates:
-        raise ValueError("no backend could be built for this triple")
-    if len(candidates) == 1:
-        (be, solver), = candidates.items()
-        solver.backend_choice = be
+    cached = (None if opt.solver.get("auto_probe_refresh", False)
+              else _auto_cache_load().get(key))
+    if cached in builder.backends:
+        solver = builder(sys, param, opt, backend=cached)
+        solver.backend_choice = cached
         solver.backend_probe_s = {}
-        solver.backend_probe_cached = False
-        _auto_cache_store(key, be)
+        solver.backend_probe_cached = True
         return solver
 
+    candidates = {be: builder(sys, param, opt, backend=be)
+                  for be in builder.backends}
     times: dict[str, float] = {}
-    for be, solver in candidates.items():
-        inputs = []
-        for kind in solver.input_kinds:
-            if kind in ("x", "xa"):
-                dim = solver.n
-            elif kind in ("u", "ua"):
-                dim = solver.m
-            elif kind == "xu":
-                dim = solver.n + solver.m
-            else:
-                break       # trailing unit-less inputs: use defaults
-            inputs.append(np.zeros((probe_b, dim), solver.dtype))
-        missing = solver.n_inputs - len(inputs)
-        if missing:
-            # trailing inputs without a unit kind (e.g. the soc runtime
-            # radius) fall back to their registered defaults
-            if missing > len(solver.default_inputs):
-                times[be] = float("inf")
-                continue
-            inputs = inputs + [
-                jnp.broadcast_to(jnp.asarray(d, solver.dtype),
-                                 (probe_b,) + np.shape(d))
-                for d in solver.default_inputs[-missing:]]
-        try:
-            res = solver(*inputs, fixed_iters=probe_iters)
-            jax.block_until_ready(res.u)
+    if len(candidates) > 1:
+        for be, solver in candidates.items():
+            inputs = _probe_inputs(solver, probe_b)
+            jax.block_until_ready(
+                solver(*inputs, fixed_iters=probe_iters).u)
             reps = []
             for _ in range(probe_reps):
                 t0 = time.perf_counter()
-                res = solver(*inputs, fixed_iters=probe_iters)
-                jax.block_until_ready(res.u)
+                jax.block_until_ready(
+                    solver(*inputs, fixed_iters=probe_iters).u)
                 reps.append(time.perf_counter() - t0)
             times[be] = sorted(reps)[len(reps) // 2]
-        except Exception:
-            times[be] = float("inf")
-    best = min(times, key=times.get)
-    if not np.isfinite(times[best]):
-        raise ValueError("every candidate backend failed the auto probe")
+        best = min(times, key=times.get)
+    else:
+        (best,) = candidates
     solver = candidates[best]
     solver.backend_choice = best
     solver.backend_probe_s = times

@@ -80,7 +80,7 @@ def generate_embedded_solver(sys: dict, param: dict, *,
     recomputation (examples/t01_time_varying_MPC.m workflow).
 
     This is the C-platform arm of the reference's spcies('gen', ...) flow;
-    make_solver is the TPU arm.
+    make_solver is the batched-accelerator arm.
     """
     sel = Options(formulation=formulation, method=method,
                   submethod=submethod)

@@ -1,11 +1,11 @@
-"""Plain-C solver generation — the TPU framework's embedded-deployment
+"""Plain-C solver generation — the framework's embedded-deployment
 backend, covering the reference's core product (tailored, allocation-free,
 library-free C solvers with the problem data baked in as static const
 arrays; spcies_gen_controller.m -> Spcies_constructor.construct flow).
 
 Currently emits laxMPC-ADMM, equMPC-ADMM and ellipMPC-ADMM (plus the FISTA
 pair below). The generated C implements the same banded ADMM iteration as the
-TPU solvers but in this framework's representation: full upper-triangular
+batched solvers but in this framework's representation: full upper-triangular
 BetaInv block inverses (kernels/band_chol.py design) instead of the
 reference's inverted-diagonal Beta with in-place substitutions — the
 per-stage solves become plain matrix-vector products, and the C is

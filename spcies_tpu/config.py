@@ -7,7 +7,7 @@ Mirrors the reference's central config object `classes/Spcies_options.m`:
     (Spcies_options.m:477-516 -> def_options_* files),
   - general toolbox options (Spcies_options.m:24-38).
 
-Design difference (TPU-first): options that the reference lowers to C
+Design difference: options that the reference lowers to C
 `#define`s gating template code paths (DEBUG, TIME_VARYING, IS_DIAG,
 SCALAR_RHO, ...) become static Python booleans here; JAX specializes the
 traced program on them at jit time, which plays the exact same role as the
@@ -241,7 +241,7 @@ class Problem:
                            self.options, solver=dict(self.options.solver)))
 
     def solver(self, **kw):
-        """Build the TPU solver for this recipe (make_solver arm)."""
+        """Build the batched solver for this recipe (make_solver arm)."""
         from spcies_tpu.api import make_solver
         return make_solver(self.sys, self.param,
                            formulation=self.options.formulation,

@@ -2,7 +2,7 @@
 instrumentation (snippets/read_time.c, get_elapsed_time.c; semantics in
 docs/timing.md): update / solve / polish / run phase timers in ms.
 
-On TPU, per-iteration timing is meaningless (the whole loop is one device
+Per-iteration timing is meaningless here (the whole loop is one device
 dispatch); instead we time dispatch phases around block_until_ready and
 report per-lane iteration counts from the solver output.
 """

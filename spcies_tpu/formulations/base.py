@@ -17,8 +17,13 @@ import numpy as np
 BUILDERS: dict[tuple[str, str, str], Callable] = {}
 
 
-def register_builder(formulation: str, method: str, submethod: str = ""):
+def register_builder(formulation: str, method: str, submethod: str = "",
+                     backends: tuple[str, ...] = ("dense",)):
+    """Register a triple's builder(sys, param, opt, backend=...) together
+    with the z-step backends it implements; make_solver refuses any other
+    backend before calling the builder."""
     def deco(fn):
+        fn.backends = tuple(backends)
         BUILDERS[(formulation, method, submethod)] = fn
         return fn
     return deco

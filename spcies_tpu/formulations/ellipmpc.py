@@ -15,11 +15,11 @@ second-order-cone constraint with one slack scalar; the ellipsoid center is
 the *runtime* state reference xr and the radius is a runtime input
 (code_ellipMPC_ADMM_soc_C.c:20 takes r_ellip as 4th argument;
 compute_ellipMPC_ADMM_soc_ingredients.m,
-spcies_ellipMPC_ADMM_soc_solver.m). TPU-native design: the reference's
+spcies_ellipMPC_ADMM_soc_solver.m). Batched design: the reference's
 offline LDL + CSR SpMV pipeline is replaced by the algebraically equivalent
 dense affine maps aux = M1 q_hat + M2 bh (the reference's own commented
-non-sparse path, spcies_ellipMPC_ADMM_soc_solver.m:198), which XLA maps to
-two MXU matmuls per iteration.
+non-sparse path, spcies_ellipMPC_ADMM_soc_solver.m:198): two batched
+matmuls per iteration.
 """
 
 from __future__ import annotations
@@ -153,120 +153,8 @@ def _ellipmpc_q_ref(ing, xr, ur, dtype):
         [qu, jnp.tile(mid, (1, N - 1)), -(xr @ T.T)], axis=-1)
 
 
-def _build_ellipmpc_admm_fused(ing, opt) -> BatchedSolver:
-    """'fused' backend: the whole ADMM loop VMEM-resident
-    (kernels/fused_ellip.py) in P_half-transformed coordinates, where the
-    P-norm ellipsoid projection is a Euclidean ball projection and the
-    dual/delta updates lose their per-iteration P matmuls."""
-    from spcies_tpu.kernels.fused_admm import _round_up
-    from spcies_tpu.kernels.fused_ellip import fused_ellip_solve
-
-    if opt.precision == "double":
-        raise ValueError("the fused backend is the fp32 production path; "
-                         "use backend='dense' for fp64 verification")
-    if not ing["rho_is_scalar"]:
-        raise ValueError("the fused ellipMPC backend supports scalar rho; "
-                         "use backend='dense' for vector rho")
-    dtype = jnp.float32
-    n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
-    ns = nz - n
-    tol = float(opt.solver["tol"])
-    k_max = int(opt.solver["k_max"])
-    rho_f = float(ing["rho_T"])
-    tile_b = int(opt.solver.get("tile_b", 256))
-    check_every = int(opt.solver.get("check_every", 1))
-    interpret = bool(opt.solver.get("pallas_interpret", False))
-
-    # offline fp64: M2 = S M_q S with S = blkdiag(I, P_half); the kernel's
-    # only per-iteration matmul (z' += rho dz' @ M2, row form — M2 is
-    # symmetric since M_q and S are; rho scales the vector in-kernel to
-    # match the dense engine's rounding order)
-    P_half_np = np.asarray(ing["P_half"], float)
-    Pinv_half_np = np.linalg.inv(P_half_np)
-    S = linalg.blkdiag(np.eye(ns), P_half_np)
-    M2 = S @ np.asarray(ing["M_q"], float) @ S
-
-    nzp = _round_up(nz, 128)
-    M2_pad = np.zeros((nzp, nzp), np.float32)
-    M2_pad[:nz, :nz] = M2.T
-    PINVH_pad = np.zeros((nzp, nzp), np.float32)
-    PINVH_pad[ns:nz, ns:nz] = Pinv_half_np.T
-    LB_pad = np.zeros((1, nzp), np.float32)
-    UB_pad = np.zeros((1, nzp), np.float32)
-    LB_pad[0, :ns] = np.maximum(ing["LB"], -1e30)
-    UB_pad[0, :ns] = np.minimum(ing["UB"], 1e30)
-    segT = np.zeros((1, nzp), np.float32)
-    segT[0, ns:nz] = 1.0
-    c_pad = np.zeros((1, nzp), np.float32)
-    c_pad[0, ns:nz] = P_half_np @ np.asarray(ing["c"], float)
-
-    M2_pad = jnp.asarray(M2_pad)
-    PINVH_pad = jnp.asarray(PINVH_pad)
-    LB_pad = jnp.asarray(LB_pad)
-    UB_pad = jnp.asarray(UB_pad)
-    segT_j = jnp.asarray(segT)
-    c_pad_j = jnp.asarray(c_pad)
-    M_q = jnp.asarray(ing["M_q"], dtype)
-    M_b = jnp.asarray(ing["M_b"], dtype)
-    A = jnp.asarray(ing["A"], dtype)
-    P = jnp.asarray(ing["P"], dtype)
-    P_half = jnp.asarray(P_half_np, dtype)
-    Pinv_half = jnp.asarray(Pinv_half_np, dtype)
-    rho = dtype(rho_f)
-
-    def _to_t(x):
-        """Original -> transformed coordinates (terminal block through
-        P_half)."""
-        return jnp.concatenate([x[:, :ns], x[:, ns:] @ P_half.T], axis=-1)
-
-    def _from_t(x):
-        return jnp.concatenate([x[:, :ns], x[:, ns:nz] @ Pinv_half.T],
-                               axis=-1)
-
-    def _solve(x0, xr, ur, init, fixed_iters):
-        Bsz = x0.shape[0]
-        q_ref = _ellipmpc_q_ref(ing, xr, ur, dtype)
-        b0 = -(x0 @ A.T)
-        if init is None:
-            zeros = jnp.zeros((Bsz, nz), dtype)
-            v0, lam0 = zeros, zeros
-        else:
-            _, v0, lam0 = init
-        # peeled first equality-QP solve (dense-engine prologue; runs under
-        # the solver-level highest-precision context)
-        qs = q_ref[:, :ns] + lam0[:, :ns] - rho * v0[:, :ns]
-        qT = (q_ref[:, ns:] + lam0[:, ns:] @ P_half.T
-              - rho * (v0[:, ns:] @ P.T))
-        q_hat = jnp.concatenate([qs, qT], axis=-1)
-        z1 = q_hat @ M_q.T + b0 @ M_b.T
-
-        z1t = _to_t(z1)
-        v0t = _to_t(v0)
-        Bp = ((Bsz + tile_b - 1) // tile_b) * tile_b
-        pad = ((0, Bp - Bsz), (0, nzp - nz))
-        z1p = jnp.pad(z1t, pad)
-        v0p = jnp.pad(v0t, pad)
-        lam0p = jnp.pad(lam0, pad)
-        with jax.default_matmul_precision("default"):
-            z, v, lam, k, e_flag, r_p, r_d = fused_ellip_solve(
-                z1p, v0p, lam0p, M2_pad, PINVH_pad, LB_pad, UB_pad,
-                segT_j, c_pad_j, rho=rho_f, tol_p=tol, tol_d=tol,
-                k_max=k_max, r_ball=float(ing["r"]), tile_b=tile_b,
-                check_every=check_every,
-                exact_k=bool(opt.solver.get("exact_k", False)),
-                fixed_iters=int(fixed_iters or 0), interpret=interpret)
-        z_o = _from_t(z[:Bsz])
-        v_o = _from_t(v[:Bsz])
-        return SolveResult(
-            u=v_o[:, :m], k=k[:Bsz], e_flag=e_flag[:Bsz],
-            sol=dict(z=z_o, v=v_o, lam=lam[:Bsz, :nz],
-                     r_p=r_p[:Bsz], r_d=r_d[:Bsz]))
-
-    return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz,
-                         dtype=dtype)
-
-
-@register_builder("ellipMPC", "ADMM")
+@register_builder("ellipMPC", "ADMM",
+                  backends=("dense", "banded"))
 def build_ellipmpc_admm(sys: dict, param: dict, opt: Options,
                         backend: str = "dense") -> BatchedSolver:
     ing = ellipmpc_admm_ingredients(sys, param, opt)
@@ -292,9 +180,6 @@ def build_ellipmpc_admm(sys: dict, param: dict, opt: Options,
     Pinv_half = jnp.asarray(ing["Pinv_half"], dtype)
     c = jnp.asarray(ing["c"], dtype)
     r = dtype(ing["r"])
-
-    if backend == "fused":
-        return _build_ellipmpc_admm_fused(ing, opt)
 
     if backend == "dense":
         M_q = jnp.asarray(ing["M_q"], dtype)
@@ -445,142 +330,11 @@ def ellipmpc_admm_soc_ingredients(sys: dict, param: dict, opt: Options) -> dict:
     )
 
 
-def _build_ellipmpc_soc_fused(ing, opt) -> BatchedSolver:
-    """'fused' backend for ADMM-soc (kernels/fused_soc.py): the whole
-    split loop VMEM-resident in the layout [z (dim_p) | s (sp)], aux
-    maintained in delta form; the (1+n)-dim slack-SOC projection runs
-    in-kernel with a scratch-laundered tail-norm reduction. The runtime
-    radius enters only through the prologue offset aux_b, so the kernel
-    is radius-agnostic (code_ellipMPC_ADMM_soc_C.c:20 r_ellip input)."""
-    from spcies_tpu.kernels.fused_admm import _round_up
-    from spcies_tpu.kernels.fused_soc import fused_soc_solve
-
-    if opt.precision != "float":
-        raise ValueError("the fused backend is the fp32 production path; "
-                         "use backend='dense' for fp64 verification")
-    n, m, N = ing["n"], ing["m"], ing["N"]
-    dim, n_s = ing["dim"], ing["n_s"]
-    nbox = (N - 1) * (n + m) + m
-    tol_p = float(opt.solver["tol_p"])
-    tol_d = float(opt.solver["tol_d"])
-    k_max = int(opt.solver["k_max"])
-    sigma_f = float(ing["sigma"])
-    rho_f = float(ing["rho"])
-    tile_b = int(opt.solver.get("tile_b", 256))
-    check_every = int(opt.solver.get("check_every", 1))
-    interpret = bool(opt.solver.get("pallas_interpret", False))
-
-    dim_p = _round_up(dim, 128)
-    sp = _round_up(n_s, 128)
-    P = dim_p + sp
-    pos_full = np.concatenate([np.arange(dim), dim_p + np.arange(n_s)])
-
-    M1P = np.zeros((P, P), dtype=np.float32)
-    M1P[np.ix_(pos_full, pos_full)] = np.asarray(ing["M1"]).T
-
-    LB_head = np.zeros((1, dim_p), np.float32)
-    UB_head = np.zeros((1, dim_p), np.float32)
-    LB_head[0, :nbox] = np.maximum(ing["LB"], -1e30)
-    UB_head[0, :nbox] = np.minimum(ing["UB"], 1e30)
-    LB_head[0, nbox:dim] = -3.0e38     # x_N + slack unclipped
-    UB_head[0, nbox:dim] = 3.0e38
-    e0_row = np.zeros((1, sp), np.float32)
-    e0_row[0, 0] = 1.0
-    scale_row = np.zeros((1, P), np.float32)
-    scale_row[0, :dim_p] = sigma_f
-    scale_row[0, dim_p:] = rho_f
-    iscale_row = np.zeros((1, P), np.float32)
-    iscale_row[0, :dim] = 1.0 / sigma_f
-    iscale_row[0, dim_p:dim_p + n_s] = 1.0 / rho_f
-
-    M1P = jnp.asarray(M1P)
-    LB_head = jnp.asarray(LB_head)
-    UB_head = jnp.asarray(UB_head)
-    e0_row = jnp.asarray(e0_row)
-    scale_row = jnp.asarray(scale_row)
-    iscale_row = jnp.asarray(iscale_row)
-    pos_full_j = jnp.asarray(pos_full)
-    M1 = jnp.asarray(ing["M1"], jnp.float32)
-    M2_b0 = jnp.asarray(ing["M2_b0"], jnp.float32)
-    M2_r = jnp.asarray(ing["M2_r"], jnp.float32)
-    M2_d = jnp.asarray(ing["M2_d"], jnp.float32)
-    PhiP = jnp.asarray(ing["PhiP"], jnp.float32)
-    A = jnp.asarray(ing["A"], jnp.float32)
-    Qd = jnp.asarray(ing["Qd"], jnp.float32)
-    Rd = jnp.asarray(ing["Rd"], jnp.float32)
-    T = jnp.asarray(ing["T"], jnp.float32)
-    sigma = jnp.float32(sigma_f)
-    rho = jnp.float32(rho_f)
-
-    def _q(xr, ur):
-        qu = -ur * Rd
-        mid = jnp.concatenate([-xr * Qd, qu], axis=-1)
-        zero = jnp.zeros(xr.shape[:-1] + (1,), jnp.float32)
-        return jnp.concatenate(
-            [qu, jnp.tile(mid, (1, N - 1)), -(xr @ T.T), zero], axis=-1)
-
-    def _solve(x0, xr, ur, r_ellip, init, fixed_iters):
-        if fixed_iters is not None:
-            raise ValueError("fixed_iters is not supported by the fused "
-                             "soc backend; use backend='dense'")
-        Bsz = x0.shape[0]
-        q = _q(xr, ur)
-        r_run = r_ellip[:, 0]
-        aux_b = ((-(x0 @ A.T)) @ M2_b0.T + r_run[:, None] * M2_r
-                 + (-(xr @ PhiP.T)) @ M2_d.T)
-        if init is None:
-            z0_ = jnp.zeros((Bsz, dim), jnp.float32)
-            s0 = jnp.zeros((Bsz, n_s), jnp.float32)
-            lam0 = jnp.zeros((Bsz, dim), jnp.float32)
-            mu0 = jnp.zeros((Bsz, n_s), jnp.float32)
-        else:
-            z0_, s0, lam0, mu0 = init
-        q_hat0 = jnp.concatenate(
-            [q - sigma * z0_ + lam0, mu0 - rho * s0], axis=-1)
-        aux1 = q_hat0 @ M1.T + aux_b           # highest-precision context
-        Bp = _round_up(Bsz, tile_b)
-
-        def scatter(zpart, spart):
-            return jnp.zeros((Bp, P), jnp.float32).at[
-                :Bsz, pos_full_j].set(
-                    jnp.concatenate([zpart, spart], axis=-1))
-        aux1p = jnp.zeros((Bp, P), jnp.float32).at[
-            :Bsz, pos_full_j].set(aux1)
-        zs0p = scatter(z0_, s0)
-        lm0p = scatter(lam0, mu0)
-        with jax.default_matmul_precision("default"):
-            zs, lm, aux, k, e_flag, r_p, r_d = fused_soc_solve(
-                aux1p, zs0p, lm0p, M1P, LB_head, UB_head, e0_row,
-                scale_row, iscale_row, tol_p=tol_p, tol_d=tol_d,
-                k_max=k_max, dim_p=dim_p, tile_b=tile_b,
-                check_every=check_every,
-                exact_k=bool(opt.solver.get("exact_k", False)),
-                interpret=interpret)
-        zs_o = jnp.take(zs[:Bsz], pos_full_j, axis=1)
-        lm_o = jnp.take(lm[:Bsz], pos_full_j, axis=1)
-        aux_o = jnp.take(aux[:Bsz], pos_full_j, axis=1)
-        return SolveResult(
-            u=zs_o[:, :m], k=k[:Bsz], e_flag=e_flag[:Bsz],
-            sol=dict(z=zs_o[:, :dim], s=zs_o[:, dim:],
-                     z_hat=aux_o[:, :dim], s_hat=aux_o[:, dim:],
-                     lam=lm_o[:, :dim], mu=lm_o[:, dim:],
-                     r_p=r_p[:Bsz], r_d=r_d[:Bsz]))
-
-    return BatchedSolver(
-        _solve, ing, opt, n=n, m=m, N=N, nz=dim, dtype=jnp.float32,
-        input_names=("x0", "xr", "ur", "r_ellip"),
-        default_inputs=(np.array([ing["r_default"]]),))
-
-
-@register_builder("ellipMPC", "ADMM", "soc")
+@register_builder("ellipMPC", "ADMM", "soc",
+                  backends=("dense",))
 def build_ellipmpc_admm_soc(sys: dict, param: dict, opt: Options,
                             backend: str = "dense") -> BatchedSolver:
-    if backend not in ("dense", "fused"):
-        raise ValueError("ellipMPC/ADMM-soc has dense and fused backends "
-                         "(the KKT is not block-tridiagonal)")
     ing = ellipmpc_admm_soc_ingredients(sys, param, opt)
-    if backend == "fused":
-        return _build_ellipmpc_soc_fused(ing, opt)
     dtype = jnp.float64 if opt.precision == "double" else jnp.float32
     n, m, N = ing["n"], ing["m"], ing["N"]
     dim, n_s = ing["dim"], ing["n_s"]

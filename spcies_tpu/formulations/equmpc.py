@@ -105,7 +105,7 @@ def _equmpc_q_ref(ing, xr, ur, dtype):
     return jnp.concatenate([qu, jnp.tile(mid, (1, ing["N"] - 1))], axis=-1)
 
 
-@register_builder("equMPC", "ADMM")
+@register_builder("equMPC", "ADMM", backends=("dense", "banded"))
 def build_equmpc_admm(sys: dict, param: dict, opt: Options,
                       backend: str = "dense") -> BatchedSolver:
     from spcies_tpu.formulations.laxmpc import _tag_stagewise
@@ -152,20 +152,6 @@ def build_equmpc_admm(sys: dict, param: dict, opt: Options,
                              .at[:, 0].set(-b0).at[:, -1].set(-xr))
                 return eq_qp(q_hat, rhs_extra)
             return z_step
-    elif backend == "fused":
-        from spcies_tpu.solvers.fused_backend import (
-            build_fused_box_admm_solve)
-        M_b0 = jnp.asarray(ing["M_b0"], jnp.float32)
-        M_bN = jnp.asarray(ing["M_bN"], jnp.float32)
-        _solve_f = build_fused_box_admm_solve(
-            ing, opt, dtype,
-            make_q_ref=lambda x0, xr, ur: _equmpc_q_ref(ing, xr, ur, dtype),
-            make_aux_b=lambda x0, xr, ur: ((-(x0 @ A.T)) @ M_b0.T
-                                           + xr @ M_bN.T),
-            u_start=0)
-        return _tag_stagewise(
-            BatchedSolver(_solve_f, ing, opt, n=n, m=m, N=N, nz=nz,
-                          dtype=dtype), False)
     else:
         raise ValueError(f"unknown backend {backend!r}")
 
@@ -227,7 +213,8 @@ def equmpc_fista_ingredients(sys: dict, param: dict, opt: Options) -> dict:
     )
 
 
-@register_builder("equMPC", "FISTA")
+@register_builder("equMPC", "FISTA",
+                  backends=("dense", "banded"))
 def build_equmpc_fista(sys: dict, param: dict, opt: Options,
                        backend: str = "dense") -> BatchedSolver:
     """equMPC via dual FISTA (code_equMPC_FISTA_C.c,
@@ -239,18 +226,6 @@ def build_equmpc_fista(sys: dict, param: dict, opt: Options,
             _tv_fista_solver(sys, param, opt, terminal=False), False)
     from spcies_tpu.solvers.fista import fista_solve
     ing = equmpc_fista_ingredients(sys, param, opt)
-    if backend == "fused":
-        from spcies_tpu.formulations.laxmpc import _build_fista_fused
-
-        def _b_equ(ing_, x0, xr, dtype_):
-            A_ = jnp.asarray(ing_["A"], dtype_)
-            N_, n_ = ing_["N"], ing_["n"]
-            b = jnp.zeros((x0.shape[0], N_ * n_), dtype_)
-            b = b.at[:, :n_].set(-(x0 @ A_.T))
-            return b.at[:, -n_:].set(xr)
-
-        return _tag_stagewise(
-            _build_fista_fused(ing, opt, _equmpc_q_ref, _b_equ), False)
     dtype = jnp.float64 if opt.precision == "double" else jnp.float32
     n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
     tol = float(opt.solver["tol"])

@@ -15,7 +15,7 @@ ADMM), spcies_HMPC_{ADMM,SADMM}_split_solver.m / code_HMPC_ADMM_split_C.c
 (two-block split (z,s) vs (zhat,shat); SADMM = symmetric half-step duals
 scaled by alpha).
 
-TPU-native design: the reference's permuted-LDL sparse path is replaced by
+Batched design: the reference's permuted-LDL sparse path is replaced by
 the dense M1/M2 affine maps (its own non-sparse path,
 spcies_HMPC_ADMM_solver.m:135), and all projections are batched branch-free
 kernels (utils.projections). For long horizons both the single-split and
@@ -165,11 +165,11 @@ def hmpc_common_ingredients(sys: dict, param: dict, opt: Options,
         # code_HMPC_ADMM_split_C.c:192-211) — a CPU-cache optimization.
         # This framework bakes the algebraically identical dense M1/M2
         # maps (the reference's own NON_SPARSE path) because structured
-        # dense matmuls are the TPU-native form; accepting sparse=True
+        # dense matmuls are the batched form; accepting sparse=True
         # silently would misrepresent what runs.
         raise ValueError(
             "HMPC sparse=True (permuted-LDL KKT) is not supported: the "
-            "TPU engine always uses the dense M1/M2 KKT maps, which are "
+            "batched engine always uses the dense M1/M2 KKT maps, which are "
             "algebraically identical (reference NON_SPARSE path). "
             "Use sparse=False (default).")
     box_constraints = opt.solver.get("box_constraints", None)
@@ -281,132 +281,12 @@ def _make_cone_proj(ing, dtype):
     return cone_proj
 
 
-def _build_hmpc_admm_fused(ing, opt, M1_np, M2_np, make_q=None,
-                           input_names=None, lby_arr=None, uby_arr=None):
-    """'fused' backend for the single-split cone-ADMM loop (HMPC and
-    ellipHMPC): the whole iteration VMEM-resident (kernels/fused_hmpc.py)
-    with the constraint rows permuted into the segment layout
-    [box | y0 | y1 | y2]. make_q(*refs) overrides the linear-cost builder
-    (ellipHMPC's 7-input decomposed references); lby_arr/uby_arr override
-    the D-set bounds (ellipHMPC's sigma-tightened outputs)."""
-    from spcies_tpu.kernels.fused_admm import _round_up
-    from spcies_tpu.kernels.fused_hmpc import fused_hmpc_solve
-
-    if opt.precision != "float":
-        raise ValueError("the fused backend is the fp32 production path; "
-                         "use backend='dense' for fp64 verification")
-    n, m, N = ing["n"], ing["m"], ing["N"]
-    dim, n_s, n_box = ing["dim"], ing["n_s"], ing["n_box"]
-    use_soc = ing["use_soc"]
-    n_cones = ing["n_soc"] if use_soc else ing["n_y"]
-    tol_p = float(opt.solver["tol_p"])
-    tol_d = float(opt.solver["tol_d"])
-    k_max = int(opt.solver["k_max"])
-    rho_f = float(opt.solver["rho"])
-    tile_b = int(opt.solver.get("tile_b", 256))
-    check_every = int(opt.solver.get("check_every", 1))
-    interpret = bool(opt.solver.get("pallas_interpret", False))
-
-    dim_p = _round_up(dim, 128)
-    n_boxp = _round_up(max(n_box, 1), 128)
-    cp = _round_up(max(n_cones, 1), 128)
-    ns_p = n_boxp + 3 * cp
-
-    # permuted padded position of each original constraint row
-    pos = np.empty(n_s, dtype=np.int64)
-    pos[:n_box] = np.arange(n_box)
-    for c in range(n_cones):
-        pos[n_box + 3 * c + 0] = n_boxp + c
-        pos[n_box + 3 * c + 1] = n_boxp + cp + c
-        pos[n_box + 3 * c + 2] = n_boxp + 2 * cp + c
-
-    C_pp = np.zeros((ns_p, dim), dtype=np.float64)
-    C_pp[pos] = ing["C"]
-    d_pp = np.zeros((1, ns_p), dtype=np.float32)
-    d_pp[0, pos] = ing["d"]
-    blb = np.zeros((1, n_boxp), dtype=np.float32)
-    bub = np.zeros((1, n_boxp), dtype=np.float32)
-    if n_box:
-        blb[0, :n_box] = np.maximum(ing["box_LB"], -1e30)
-        bub[0, :n_box] = np.minimum(ing["box_UB"], 1e30)
-    lby = np.zeros((1, cp), dtype=np.float32)
-    uby = np.zeros((1, cp), dtype=np.float32)
-    if not use_soc:
-        lby[0, :n_cones] = ing["LBy"] if lby_arr is None else lby_arr
-        uby[0, :n_cones] = ing["UBy"] if uby_arr is None else uby_arr
-
-    CT_pad = np.zeros((dim_p, ns_p), dtype=np.float32)
-    CT_pad[:dim] = C_pp.T
-    MC_pad = np.zeros((ns_p, dim_p), dtype=np.float32)
-    MC_pad[:, :dim] = C_pp @ M1_np.T
-
-    CT_pad = jnp.asarray(CT_pad)
-    MC_pad = jnp.asarray(MC_pad)
-    d_pp = jnp.asarray(d_pp)
-    blb, bub = jnp.asarray(blb), jnp.asarray(bub)
-    lby, uby = jnp.asarray(lby), jnp.asarray(uby)
-    pos_j = jnp.asarray(pos)
-    M1 = jnp.asarray(M1_np, jnp.float32)
-    M2 = jnp.asarray(M2_np, jnp.float32)
-    C = jnp.asarray(ing["C"], jnp.float32)
-    d = jnp.asarray(ing["d"], jnp.float32)
-    A = jnp.asarray(ing["A"], jnp.float32)
-    rho = jnp.float32(rho_f)
-
-    def _solve(*args):
-        *inputs, init, fixed_iters = args
-        if fixed_iters is not None:
-            raise ValueError("fixed_iters is not supported by the fused "
-                             "HMPC backend; use backend='dense'")
-        x0 = inputs[0]
-        Bsz = x0.shape[0]
-        if make_q is None:
-            q = _make_q(ing, *inputs, jnp.float32)
-        else:
-            q = make_q(*inputs)
-        aux_b = (-(x0 @ A.T)) @ M2.T
-        if init is None:
-            s0 = jnp.zeros((Bsz, n_s), jnp.float32)
-            lam0 = jnp.zeros((Bsz, n_s), jnp.float32)
-        else:
-            _, s0, lam0 = init
-        z1 = (q + (rho * (s0 - d) + lam0) @ C) @ M1.T + aux_b
-
-        Bp = _round_up(Bsz, tile_b)
-        z1p = jnp.pad(z1, ((0, Bp - Bsz), (0, dim_p - dim)))
-        s0p = jnp.zeros((Bp, ns_p), jnp.float32).at[
-            :Bsz, pos_j].set(s0)
-        lam0p = jnp.zeros((Bp, ns_p), jnp.float32).at[
-            :Bsz, pos_j].set(lam0)
-        import jax as _jax
-        with _jax.default_matmul_precision("default"):
-            z, s_pad, lam_pad, k, e_flag, r_p, r_d = fused_hmpc_solve(
-                z1p, s0p, lam0p, CT_pad, MC_pad, d_pp, blb, bub, lby, uby,
-                rho=rho_f, tol_p=tol_p, tol_d=tol_d, k_max=k_max,
-                use_soc=use_soc, n_boxp=n_boxp, cp=cp, tile_b=tile_b,
-                check_every=check_every,
-                exact_k=bool(opt.solver.get("exact_k", False)),
-                interpret=interpret)
-        s_out = jnp.take(s_pad[:Bsz], pos_j, axis=1)
-        lam_out = jnp.take(lam_pad[:Bsz], pos_j, axis=1)
-        return SolveResult(
-            u=z[:Bsz, :m], k=k[:Bsz], e_flag=e_flag[:Bsz],
-            sol=dict(z=z[:Bsz, :dim], s=s_out, lam=lam_out,
-                     r_p=r_p[:Bsz], r_d=r_d[:Bsz]))
-
-    kw = ({} if input_names is None
-          else dict(input_names=tuple(input_names)))
-    return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=dim,
-                         dtype=jnp.float32, **kw)
-
-
-@register_builder("HMPC", "ADMM")
+@register_builder("HMPC", "ADMM",
+                  backends=("dense", "banded"))
 def build_hmpc_admm(sys: dict, param: dict, opt: Options,
                     backend: str = "dense") -> BatchedSolver:
     """Single-split ("reduced") HMPC ADMM
     (spcies_HMPC_ADMM_solver.m:125-198, code_HMPC_ADMM_C.c)."""
-    if backend not in ("dense", "fused", "banded"):
-        raise ValueError("HMPC/ADMM has dense, fused and banded backends")
     ing = hmpc_common_ingredients(sys, param, opt, split=False)
     dtype = jnp.float64 if opt.precision == "double" else jnp.float32
     n, m, N = ing["n"], ing["m"], ing["N"]
@@ -418,7 +298,7 @@ def build_hmpc_admm(sys: dict, param: dict, opt: Options,
     rho = dtype(rho_f)
     rho_i = dtype(1.0 / rho_f)
 
-    if backend in ("dense", "fused"):
+    if backend == "dense":
         # dense KKT maps (compute_HMPC_ADMM_ingredients.m:252-257)
         Hh = ing["H"] + rho_f * (ing["C"].T @ ing["C"])
         Hhi = np.linalg.inv(Hh)
@@ -428,8 +308,6 @@ def build_hmpc_admm(sys: dict, param: dict, opt: Options,
         M1_np = Hhi @ G.T @ Winv @ G @ Hhi - Hhi
         M2_np = (Hhi @ G.T @ Winv)[:, :n]
 
-    if backend == "fused":
-        return _build_hmpc_admm_fused(ing, opt, M1_np, M2_np)
     if backend == "banded":
         # O(N)-memory structured KKT (single-split arrowhead variant of
         # _make_hmpc_split_structured_kkt; sigma unused)
@@ -511,143 +389,6 @@ def build_hmpc_admm(sys: dict, param: dict, opt: Options,
 
     return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=dim,
                          dtype=dtype)
-
-
-def _build_hmpc_split_fused(ing, opt, M1_np, M2_np, symmetric: bool):
-    """'fused' backend for the two-block split (S)ADMM loop
-    (kernels/fused_split.py): the concatenated (z, s) state VMEM-resident
-    in the layout [z | box | y0 | y1 | y2], aux maintained in delta form.
-    Same contract as the single-split fused backend: exact per-lane k in
-    check_every=1 mode with fp32-roundoff iterate agreement (the permuted
-    KKT matmul changes the contraction order vs the dense engine)."""
-    from spcies_tpu.kernels.fused_admm import _round_up
-    from spcies_tpu.kernels.fused_split import fused_split_solve
-
-    if opt.precision != "float":
-        raise ValueError("the fused backend is the fp32 production path; "
-                         "use backend='dense' for fp64 verification")
-    n, m, N = ing["n"], ing["m"], ing["N"]
-    dim, n_s, ns = ing["dim"], ing["n_s"], ing["ns"]
-    n_box = ing["n_box"]
-    box_mode = ing["box_constraints"]
-    use_soc = ing["use_soc"]
-    n_cones = ing["n_soc"] if use_soc else ing["n_y"]
-    tol_p = float(opt.solver["tol_p"])
-    tol_d = float(opt.solver["tol_d"])
-    k_max = int(opt.solver["k_max"])
-    rho_f = float(opt.solver["rho"])
-    sigma_f = float(opt.solver["sigma"])
-    alpha_f = float(opt.solver["alpha"]) if symmetric else 1.0
-    tile_b = int(opt.solver.get("tile_b", 256))
-    check_every = int(opt.solver.get("check_every", 1))
-    interpret = bool(opt.solver.get("pallas_interpret", False))
-
-    dim_p = _round_up(dim, 128)
-    n_boxp = _round_up(max(n_box, 1), 128)
-    cp = _round_up(max(n_cones, 1), 128)
-    ns_p = n_boxp + 3 * cp
-    P = dim_p + ns_p
-
-    # permuted padded position of each combined (z, s) entry
-    pos_s = np.empty(n_s, dtype=np.int64)
-    pos_s[:n_box] = np.arange(n_box)
-    for c in range(n_cones):
-        pos_s[n_box + 3 * c + 0] = n_boxp + c
-        pos_s[n_box + 3 * c + 1] = n_boxp + cp + c
-        pos_s[n_box + 3 * c + 2] = n_boxp + 2 * cp + c
-    pos_full = np.concatenate([np.arange(dim), dim_p + pos_s])
-
-    M1P = np.zeros((P, P), dtype=np.float32)
-    M1P[np.ix_(pos_full, pos_full)] = M1_np.T
-
-    # head clip bounds: z block then the box segment
-    LB_head = np.zeros((1, dim_p + n_boxp), np.float32)
-    UB_head = np.zeros((1, dim_p + n_boxp), np.float32)
-    if box_mode:
-        LB_head[0, :ns] = np.maximum(ing["box_LB"], -1e30)
-        UB_head[0, :ns] = np.minimum(ing["box_UB"], 1e30)
-        LB_head[0, ns:dim] = -3.0e38       # harmonic refs unclipped
-        UB_head[0, ns:dim] = 3.0e38
-    else:
-        LB_head[0, :dim] = -3.0e38         # z unclipped
-        UB_head[0, :dim] = 3.0e38
-        LB_head[0, dim_p:dim_p + n_box] = np.maximum(ing["box_LB"], -1e30)
-        UB_head[0, dim_p:dim_p + n_box] = np.minimum(ing["box_UB"], 1e30)
-    lby = np.zeros((1, cp), np.float32)
-    uby = np.zeros((1, cp), np.float32)
-    if not use_soc:
-        lby[0, :n_cones] = ing["LBy"]
-        uby[0, :n_cones] = ing["UBy"]
-    scale_row = np.zeros((1, P), np.float32)
-    scale_row[0, :dim_p] = sigma_f
-    scale_row[0, dim_p:] = rho_f
-    iscale_row = np.zeros((1, P), np.float32)
-    iscale_row[0, :dim_p] = 1.0 / sigma_f
-    iscale_row[0, dim_p:] = 1.0 / rho_f
-
-    M1P = jnp.asarray(M1P)
-    LB_head = jnp.asarray(LB_head)
-    UB_head = jnp.asarray(UB_head)
-    lby, uby = jnp.asarray(lby), jnp.asarray(uby)
-    scale_row = jnp.asarray(scale_row)
-    iscale_row = jnp.asarray(iscale_row)
-    pos_full_j = jnp.asarray(pos_full)
-    M1 = jnp.asarray(M1_np, jnp.float32)
-    M2_b0 = jnp.asarray(M2_np[:, :n], jnp.float32)
-    aux_d = jnp.asarray(M2_np[:, ing["n_eq"]:] @ ing["d"], jnp.float32)
-    A = jnp.asarray(ing["A"], jnp.float32)
-    rho = jnp.float32(rho_f)
-    sigma = jnp.float32(sigma_f)
-
-    def _solve(x0, xr, ur, init, fixed_iters):
-        if fixed_iters is not None:
-            raise ValueError("fixed_iters is not supported by the fused "
-                             "split backend; use backend='dense'")
-        Bsz = x0.shape[0]
-        q = _make_q(ing, x0, xr, ur, jnp.float32)
-        aux_b = (-(x0 @ A.T)) @ M2_b0.T + aux_d
-        if init is None:
-            z0_ = jnp.zeros((Bsz, dim), jnp.float32)
-            s0 = jnp.zeros((Bsz, n_s), jnp.float32)
-            lam0 = jnp.zeros((Bsz, dim), jnp.float32)
-            mu0 = jnp.zeros((Bsz, n_s), jnp.float32)
-        else:
-            z0_, s0, lam0, mu0 = init
-        q_hat0 = jnp.concatenate(
-            [q - sigma * z0_ + lam0, mu0 - rho * s0], axis=-1)
-        aux1 = q_hat0 @ M1.T + aux_b            # highest-precision context
-
-        Bp = _round_up(Bsz, tile_b)
-        def scatter(zpart, spart):
-            return jnp.zeros((Bp, P), jnp.float32).at[
-                :Bsz, pos_full_j].set(
-                    jnp.concatenate([zpart, spart], axis=-1))
-        aux1p = jnp.zeros((Bp, P), jnp.float32).at[
-            :Bsz, pos_full_j].set(aux1)
-        zs0p = scatter(z0_, s0)
-        lm0p = scatter(lam0, mu0)
-        import jax as _jax
-        with _jax.default_matmul_precision("default"):
-            zs, lm, aux, k, e_flag, r_p, r_d = fused_split_solve(
-                aux1p, zs0p, lm0p, M1P, LB_head, UB_head, lby, uby,
-                scale_row, iscale_row, alpha=alpha_f, tol_p=tol_p,
-                tol_d=tol_d, k_max=k_max, use_soc=use_soc,
-                symmetric=symmetric, dim_p=dim_p, n_boxp=n_boxp, cp=cp,
-                tile_b=tile_b, check_every=check_every,
-                exact_k=bool(opt.solver.get("exact_k", False)),
-                interpret=interpret)
-        zs_o = jnp.take(zs[:Bsz], pos_full_j, axis=1)
-        lm_o = jnp.take(lm[:Bsz], pos_full_j, axis=1)
-        aux_o = jnp.take(aux[:Bsz], pos_full_j, axis=1)
-        return SolveResult(
-            u=zs_o[:, :m], k=k[:Bsz], e_flag=e_flag[:Bsz],
-            sol=dict(z=zs_o[:, :dim], s=zs_o[:, dim:],
-                     z_hat=aux_o[:, :dim], s_hat=aux_o[:, dim:],
-                     lam=lm_o[:, :dim], mu=lm_o[:, dim:],
-                     r_p=r_p[:Bsz], r_d=r_d[:Bsz]))
-
-    return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=dim,
-                         dtype=jnp.float32)
 
 
 def _make_hmpc_split_structured_kkt(ing, sigma_f, rho_f, dtype,
@@ -890,7 +631,7 @@ def _build_hmpc_split(sys, param, opt, symmetric: bool,
     alpha = dtype(float(opt.solver["alpha"]) if symmetric else 1.0)
 
     n_eq = ing["n_eq"]
-    if backend in ("dense", "fused"):
+    if backend == "dense":
         # dense KKT maps over (z, s)
         # (compute_HMPC_ADMM_split_ingredients.m:219-240)
         Hh = linalg.blkdiag(ing["H"] + sigma_f * np.eye(dim),
@@ -903,8 +644,6 @@ def _build_hmpc_split(sys, param, opt, symmetric: bool,
         M1_np = Hhi @ Gh.T @ Winv @ Gh @ Hhi - Hhi
         M2_np = Hhi @ Gh.T @ Winv
 
-    if backend == "fused":
-        return _build_hmpc_split_fused(ing, opt, M1_np, M2_np, symmetric)
     if backend == "banded":
         # O(N)-memory structured-KKT path (arrowhead Woodbury + band
         # Cholesky scan), the harmonic analogue of MPCT-semiband — the
@@ -1031,13 +770,15 @@ def _build_hmpc_split(sys, param, opt, symmetric: bool,
                          dtype=dtype)
 
 
-@register_builder("HMPC", "ADMM", "split")
+@register_builder("HMPC", "ADMM", "split",
+                  backends=("dense", "banded"))
 def build_hmpc_admm_split(sys, param, opt, backend: str = "dense"):
     return _build_hmpc_split(sys, param, opt, symmetric=False,
                              backend=backend)
 
 
-@register_builder("HMPC", "SADMM", "split")
+@register_builder("HMPC", "SADMM", "split",
+                  backends=("dense", "banded"))
 def build_hmpc_sadmm_split(sys, param, opt, backend: str = "dense"):
     return _build_hmpc_split(sys, param, opt, symmetric=True,
                              backend=backend)
@@ -1047,7 +788,8 @@ def build_hmpc_sadmm_split(sys, param, opt, backend: str = "dense"):
 # ellipHMPC — harmonic MPC with coupled-output constraints
 # ---------------------------------------------------------------------------
 
-@register_builder("ellipHMPC", "ADMM")
+@register_builder("ellipHMPC", "ADMM",
+                  backends=("dense",))
 def build_elliphmpc_admm(sys: dict, param: dict, opt: Options,
                          backend: str = "dense") -> BatchedSolver:
     """Harmonic MPC with coupled-output constraints
@@ -1060,8 +802,6 @@ def build_elliphmpc_admm(sys: dict, param: dict, opt: Options,
     (struct_ellipHMPC_ADMM_C_Matlab.c:27); (2) the D-set projections use
     sigma-tightened output bounds (vars.LBy/UBy,
     compute_ellipHMPC_ADMM_ingredients.m:230-231)."""
-    if backend not in ("dense", "fused"):
-        raise ValueError("ellipHMPC/ADMM has dense and fused backends")
     if "E" not in sys:
         raise ValueError("ellipHMPC requires coupled-output matrices "
                          "sys['E'], sys['F'] and bounds LBy/UBy")
@@ -1085,28 +825,6 @@ def build_elliphmpc_admm(sys: dict, param: dict, opt: Options,
     Winv = np.linalg.inv(W)
     M1_np = Hhi @ G.T @ Winv @ G @ Hhi - Hhi
     M2_np = (Hhi @ G.T @ Winv)[:, :n]
-
-    if backend == "fused":
-        Qf = jnp.asarray(ing["Q"], jnp.float32)
-        Tef = jnp.asarray(ing["Te"], jnp.float32)
-        Thf = jnp.asarray(ing["Th"], jnp.float32)
-        Sef = jnp.asarray(ing["Se"], jnp.float32)
-        Shf = jnp.asarray(ing["Sh"], jnp.float32)
-        nsf = ing["ns"]
-
-        def make_q(x0, xre, xrs, xrc, ure, urs, urc):
-            Bsz = x0.shape[0]
-            qx0 = x0 @ Qf.T
-            return jnp.concatenate(
-                [jnp.zeros((Bsz, nsf), jnp.float32),
-                 -(xre @ Tef.T) - qx0, -(xrs @ Thf.T),
-                 -(xrc @ Thf.T) - qx0,
-                 -(ure @ Sef.T), -(urs @ Shf.T), -(urc @ Shf.T)], axis=-1)
-
-        return _build_hmpc_admm_fused(
-            ing, opt, M1_np, M2_np, make_q=make_q,
-            input_names=("x0", "xre", "xrs", "xrc", "ure", "urs", "urc"),
-            lby_arr=ing["LBy"] + sigma, uby_arr=ing["UBy"] - sigma)
 
     M1 = jnp.asarray(M1_np, dtype)
     M2 = jnp.asarray(M2_np, dtype)

@@ -7,9 +7,9 @@ Decision vector z = (u_0, x_1, u_1, ..., x_{N-1}, u_{N-1}, x_N), dim N(n+m).
 Reference: formulations/+laxMPC/compute_laxMPC_ADMM_ingredients.m (offline
 math), code_laxMPC_ADMM_C.c:308-633 (ADMM loop), TCST 2020 eq. (9).
 
-TPU-native design, two interchangeable z-step backends:
+Batched design, two interchangeable z-step backends:
   'dense'  — the whole equality-QP solve collapsed offline into one affine
-             map z = M_q q_hat + M_b b0 (one [B,nz]x[nz,nz] MXU matmul per
+             map z = M_q q_hat + M_b b0 (one [B,nz]x[nz,nz] matmul per
              iteration). Algebraically identical to the reference's
              band-solve; best for the contracted small horizons.
   'banded' — structured blockwise RHS build + Alpha/Beta banded Cholesky
@@ -126,7 +126,7 @@ def _tag_stagewise(solver, terminal: bool):
     return solver
 
 
-@register_builder("laxMPC", "ADMM")
+@register_builder("laxMPC", "ADMM", backends=("dense", "banded"))
 def build_laxmpc_admm(sys: dict, param: dict, opt: Options,
                       backend: str = "dense") -> BatchedSolver:
     if opt.time_varying:
@@ -150,9 +150,8 @@ def build_laxmpc_admm(sys: dict, param: dict, opt: Options,
         M_q = jnp.asarray(ing["M_q"], dtype)
         M_b = jnp.asarray(ing["M_b"], dtype)
         # bf16 delta path (fp32 only): the delta-form correction dq -> 0,
-        # so a bf16 MXU matmul's absolute error shrinks with the residual —
-        # iteration counts match the fp32 path exactly on the benchmark
-        # workload while running the hot matmul at bf16 rate.
+        # so a bf16 matmul's absolute error shrinks with the residual —
+        # the hot matmul runs at bf16 rate.
         bf16_delta = (bool(opt.solver.get("bf16_delta", False))
                       and dtype == jnp.float32)
         if bf16_delta:
@@ -182,9 +181,6 @@ def build_laxmpc_admm(sys: dict, param: dict, opt: Options,
                 rhs_extra = jnp.zeros((Bsz, N, n), dtype).at[:, 0].set(-b0)
                 return eq_qp(q_hat, rhs_extra)
             return z_step
-    elif backend == "fused":
-        return _tag_stagewise(_build_laxmpc_admm_fused(ing, opt, dtype),
-                              True)
     else:
         raise ValueError(f"unknown backend {backend!r}")
 
@@ -302,99 +298,8 @@ def _make_fista_parts(ing, dtype, backend, terminal: bool):
     return z_from_q, gt_op, g_op, w_solve
 
 
-def _build_fista_fused(ing, opt, make_q_ref, make_b) -> BatchedSolver:
-    """'fused' FISTA backend: the whole dual-FISTA loop VMEM-resident
-    (kernels/fused_fista.py), with q = q_ref - y G and r = b - z G'
-    maintained in delta form so every per-iteration matmul has shrinking
-    operands (single-pass MXU precision is safe). Shared by laxMPC and
-    equMPC — they differ only in (q_ref, b) construction."""
-    from spcies_tpu.kernels.fused_admm import _round_up
-    from spcies_tpu.kernels.fused_fista import fused_fista_solve
-
-    if opt.precision == "double":
-        raise ValueError("the fused backend is the fp32 production path; "
-                         "use backend='dense' for fp64 verification")
-    dtype = jnp.float32
-    n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
-    nlam = N * n
-    tol = float(opt.solver["tol"])
-    k_max = int(opt.solver["k_max"])
-    restart = bool(opt.solver.get("restart", False))
-    tile_b = int(opt.solver.get("tile_b", 256))
-    check_every = int(opt.solver.get("check_every", 1))
-    # exact_k: free-run windows + per-iteration window replay — dense
-    # masked-loop exit semantics at free-run speed (kernels/fused_fista.py)
-    exact_k = bool(opt.solver.get("exact_k", False))
-    interpret = bool(opt.solver.get("pallas_interpret", False))
-
-    nzp = _round_up(nz, 128)
-    nlamp = _round_up(nlam, 128)
-    G_np = np.asarray(ing["G"], float)
-    G_pad = np.zeros((nlamp, nzp), np.float32)
-    G_pad[:nlam, :nz] = G_np
-    GT_pad = np.ascontiguousarray(G_pad.T)
-    WinvT_pad = np.zeros((nlamp, nlamp), np.float32)
-    WinvT_pad[:nlam, :nlam] = np.asarray(ing["Winv"], float).T
-    hinv_pad = np.zeros((1, nzp), np.float32)
-    hinv_pad[0, :nz] = ing["hinv_diag"]
-    LB_pad = np.zeros((1, nzp), np.float32)
-    UB_pad = np.zeros((1, nzp), np.float32)
-    LB_pad[0, :nz] = np.maximum(ing["LB_z"], -1e30)
-    UB_pad[0, :nz] = np.minimum(ing["UB_z"], 1e30)
-    G_pad = jnp.asarray(G_pad)
-    GT_pad = jnp.asarray(GT_pad)
-    WinvT_pad = jnp.asarray(WinvT_pad)
-    hinv_pad_j = jnp.asarray(hinv_pad)
-    LB_pad_j = jnp.asarray(LB_pad)
-    UB_pad_j = jnp.asarray(UB_pad)
-
-    G = jnp.asarray(G_np, dtype)
-    Winv = jnp.asarray(ing["Winv"], dtype)
-    hinv = jnp.asarray(ing["hinv_diag"], dtype)
-    LB_z = jnp.asarray(LB_pad[0, :nz])
-    UB_z = jnp.asarray(UB_pad[0, :nz])
-
-    def _solve(x0, xr, ur, init, fixed_iters):
-        Bsz = x0.shape[0]
-        q_ref = make_q_ref(ing, xr, ur, dtype)
-        b = make_b(ing, x0, xr, dtype)
-        lam0 = (jnp.zeros((Bsz, nlam), dtype) if init is None
-                else jnp.asarray(init[0], dtype))
-        # k = 0 warm-start gradient step (solvers/fista.py prologue) under
-        # the solver-level highest-precision context
-        z0 = proj_box(-hinv * (q_ref - lam0 @ G), LB_z, UB_z)
-        r0 = b - z0 @ G.T
-        y = lam0 + r0 @ Winv.T           # lam = y after the warm start
-        q1 = q_ref - y @ G
-
-        Bp = ((Bsz + tile_b - 1) // tile_b) * tile_b
-        padz = ((0, Bp - Bsz), (0, nzp - nz))
-        padl = ((0, Bp - Bsz), (0, nlamp - nlam))
-        with jax.default_matmul_precision("default"):
-            z, yk, lam, k, e_flag, res = fused_fista_solve(
-                jnp.pad(q1, padz), jnp.pad(z0, padz), jnp.pad(r0, padl),
-                jnp.pad(y, padl), jnp.pad(y, padl),
-                G_pad, GT_pad, WinvT_pad, hinv_pad_j, LB_pad_j, UB_pad_j,
-                tol=tol, k_max=k_max, restart=restart, tile_b=tile_b,
-                check_every=check_every, exact_k=exact_k,
-                fixed_iters=int(fixed_iters or 0), interpret=interpret)
-        z = z[:Bsz, :nz]
-        return SolveResult(u=z[:, :m], k=k[:Bsz], e_flag=e_flag[:Bsz],
-                           sol=dict(z=z, lam=yk[:Bsz, :nlam],
-                                    res=res[:Bsz]))
-
-    return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz,
-                         dtype=dtype)
-
-
-def _fista_b_lax(ing, x0, xr, dtype):
-    A = jnp.asarray(ing["A"], dtype)
-    N, n = ing["N"], ing["n"]
-    b = jnp.zeros((x0.shape[0], N * n), dtype)
-    return b.at[:, :n].set(-(x0 @ A.T))
-
-
-@register_builder("laxMPC", "FISTA")
+@register_builder("laxMPC", "FISTA",
+                  backends=("dense", "banded"))
 def build_laxmpc_fista(sys: dict, param: dict, opt: Options,
                        backend: str = "dense") -> BatchedSolver:
     """laxMPC via dual FISTA (code_laxMPC_FISTA_C.c,
@@ -404,9 +309,6 @@ def build_laxmpc_fista(sys: dict, param: dict, opt: Options,
             _tv_fista_solver(sys, param, opt, terminal=True), True)
     from spcies_tpu.solvers.fista import fista_solve
     ing = laxmpc_fista_ingredients(sys, param, opt)
-    if backend == "fused":
-        return _tag_stagewise(
-            _build_fista_fused(ing, opt, _q_ref, _fista_b_lax), True)
     dtype = jnp.float64 if opt.precision == "double" else jnp.float32
     n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
     tol = float(opt.solver["tol"])
@@ -460,8 +362,8 @@ def _tv_admm_solver(sys, param, opt, *, terminal: bool):
         ([B, Nn, Nn]) and solve with batched dense Cholesky instead of the
         O(N) banded factors. This is the structure-oblivious path the
         banded design exists to avoid: its memory is quadratic in the
-        horizon PER LANE, so it hits the HBM wall at (B, N) points the
-        banded backend sails through (measured in BENCH_LONGN).
+        horizon PER LANE, so it runs out of device memory at (B, N)
+        points the banded backend sails through.
     """
     from spcies_tpu.kernels.band_chol import (band_chol_solve,
                                               band_chol_solve_scan)
@@ -726,22 +628,3 @@ def _tv_fista_solver(sys, param, opt, *, terminal: bool):
         dtype=dtype,
         input_names=("x0", "xr", "ur", "A", "B", "Q", "R", "LB", "UB"),
         input_core_ndims=(1, 1, 1, 2, 2, 1, 1, 1, 1))
-
-
-def _build_laxmpc_admm_fused(ing, opt, dtype):
-    """'fused' backend: the whole ADMM loop as one Pallas kernel per batch
-    tile with all state resident in VMEM (kernels/fused_admm.py), via the
-    shared dense box-ADMM adapter (solvers/fused_backend.py). fp32 only;
-    supports warm starts; fixed_iters benchmark mode is not available."""
-    from spcies_tpu.solvers.fused_backend import build_fused_box_admm_solve
-
-    n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
-    M_b = jnp.asarray(ing["M_b"], jnp.float32)
-    A = jnp.asarray(ing["A"], jnp.float32)
-    _solve = build_fused_box_admm_solve(
-        ing, opt, dtype,
-        make_q_ref=lambda x0, xr, ur: _q_ref(ing, xr, ur, jnp.float32),
-        make_aux_b=lambda x0, xr, ur: (-(x0 @ A.T)) @ M_b.T,
-        u_start=0)
-    return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz,
-                         dtype=dtype)

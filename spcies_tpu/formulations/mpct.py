@@ -14,7 +14,7 @@ platforms/Matlab/spcies_MPCT_EADMM_solver.m):
   z3 = (hat x_i, hat u_i) equality-QP over the prediction dynamics.
 The coupling matrices A1/A2/A3 are never materialized — their structure
 (identity stacks / ones-kron) is applied as reshapes and reductions, which
-is the TPU-native replacement for the reference's baked sparse constants.
+is the batched replacement for the reference's baked sparse constants.
 """
 
 from __future__ import annotations
@@ -136,126 +136,14 @@ def mpct_eadmm_ingredients(sys: dict, param: dict, opt: Options) -> dict:
     )
 
 
-def _build_mpct_eadmm_fused(ing, opt):
-    """'fused' backend for the 3-block EADMM loop (kernels/fused_eadmm.py):
-    the whole iteration VMEM-resident in the broadcast lane layout, the
-    A1/A3 coupling applies elementwise and the A2/W2 block folded into
-    two offline Z x Z constants."""
-    from spcies_tpu.kernels.fused_admm import _round_up
-    from spcies_tpu.kernels.fused_eadmm import fused_eadmm_solve
-
-    if opt.precision != "float":
-        raise ValueError("the fused backend is the fp32 production path; "
-                         "use backend='dense' for fp64 verification")
-    n, m, N, nm = ing["n"], ing["m"], ing["N"], ing["nm"]
-    nz1 = ing["nz1"]
-    tol = float(opt.solver["tol"])
-    k_max = int(opt.solver["k_max"])
-    tile_b = int(opt.solver.get("tile_b", 256))
-    check_every = int(opt.solver.get("check_every", 1))
-    interpret = bool(opt.solver.get("pallas_interpret", False))
-
-    Z = _round_up(nz1, 128)
-    rho = ing["rho"]
-    # z2 block folded offline: v(mid rows) @ C2m + v(tail rows) @ C2t =
-    # tile(W2 (A2' v), N+1)  — blocksum (A2mid), W2 map, broadcast (BC)
-    W2BC = ing["W2"].T @ np.tile(np.eye(nm), (1, N + 1))    # [nm, nz1]
-    A2mid = np.tile(np.eye(nm), (N + 1, 1))                 # [nz1, nm]
-    C2m = np.zeros((Z, Z), np.float32)
-    C2m[:nz1, :nz1] = A2mid @ W2BC
-    C2t = np.zeros((Z, Z), np.float32)
-    C2t[N * nm:nz1, :nz1] = W2BC
-    M3p = np.zeros((Z, Z), np.float32)
-    M3p[:nz1, :nz1] = ing["M3"].T
-
-    def _rowz():
-        return np.zeros((1, Z), np.float32)
-
-    rm_row = _rowz()
-    rm_row[0, :nz1] = rho[n:n + nz1]
-    rht_row = _rowz()
-    rht_row[0, :n] = rho[:n]
-    rht_row[0, N * nm:nz1] = rho[-nm:]
-    mh_row = _rowz()
-    mh_row[0, :n] = 1.0
-    mt_row = _rowz()
-    mt_row[0, N * nm:nz1] = 1.0
-    mr_row = _rowz()
-    mr_row[0, :nz1] = 1.0
-    h1i_row = _rowz()
-    h1i_row[0, :nz1] = ing["H1i"]
-    lb_row = _rowz()
-    lb_row[0, :nz1] = np.maximum(ing["LB"], -1e30)
-    ub_row = _rowz()
-    ub_row[0, :nz1] = np.minimum(ing["UB"], 1e30)
-    consts = tuple(jnp.asarray(a) for a in (
-        C2m, C2t, M3p, rm_row, rht_row, mh_row, mt_row, mr_row,
-        h1i_row, lb_row, ub_row))
-    W2j = jnp.asarray(ing["W2"], jnp.float32)
-    Tj = jnp.asarray(ing["T"], jnp.float32)
-    Sj = jnp.asarray(ing["S"], jnp.float32)
-
-    def _solve(x0, xr, ur, init, fixed_iters):
-        if fixed_iters is not None:
-            raise ValueError("fixed_iters is not supported by the fused "
-                             "EADMM backend; use backend='dense'")
-        Bsz = x0.shape[0]
-        q2_ref = -jnp.concatenate([xr @ Tj.T, ur @ Sj.T], axis=-1)
-        z2ref = q2_ref @ W2j.T             # highest-precision context
-        Bp = _round_up(Bsz, tile_b)
-
-        def padB(a):
-            return jnp.pad(a, ((0, Bp - Bsz), (0, Z - a.shape[1])))
-
-        x0b = padB(x0)                     # x0 at the head lanes
-        z2refb = padB(jnp.tile(z2ref, (1, N + 1)))
-        if init is None:
-            z2b0 = jnp.zeros((Bp, Z), jnp.float32)
-            z30 = jnp.zeros((Bp, Z), jnp.float32)
-            lm0 = jnp.zeros((Bp, Z), jnp.float32)
-            lht0 = jnp.zeros((Bp, Z), jnp.float32)
-        else:
-            _z1i, z2i, z3i, lami = init
-            z2b0 = padB(jnp.tile(z2i, (1, N + 1)))
-            z30 = padB(z3i)
-            lm0 = padB(lami[:, n:n + nz1])
-            lht0 = (jnp.zeros((Bp, Z), jnp.float32)
-                    .at[:Bsz, :n].set(lami[:, :n])
-                    .at[:Bsz, N * nm:nz1].set(lami[:, -nm:]))
-        import jax as _jax
-        with _jax.default_matmul_precision("default"):
-            (z1, z2b, z3, lm, lht, k, e_flag,
-             r_pf, r_z2, r_z3) = fused_eadmm_solve(
-                x0b, z2refb, z2b0, z30, lm0, lht0, *consts,
-                tol=tol, k_max=k_max, tile_b=tile_b,
-                check_every=check_every,
-                exact_k=bool(opt.solver.get("exact_k", False)),
-                interpret=interpret)
-        lam = jnp.concatenate(
-            [lht[:Bsz, :n], lm[:Bsz, :nz1], lht[:Bsz, N * nm:nz1]],
-            axis=-1)
-        return SolveResult(
-            u=z1[:Bsz, n:n + m], k=k[:Bsz], e_flag=e_flag[:Bsz],
-            sol=dict(z1=z1[:Bsz, :nz1], z2=z2b[:Bsz, :nm],
-                     z3=z3[:Bsz, :nz1], lam=lam,
-                     r_pf=r_pf[:Bsz], r_z2=r_z2[:Bsz], r_z3=r_z3[:Bsz]))
-
-    return _solve
-
-
-@register_builder("MPCT", "EADMM")
+@register_builder("MPCT", "EADMM",
+                  backends=("dense",))
 def build_mpct_eadmm(sys: dict, param: dict, opt: Options,
                      backend: str = "dense") -> BatchedSolver:
-    if backend not in ("dense", "fused"):
-        raise ValueError("MPCT/EADMM has dense and fused backends")
     ing = mpct_eadmm_ingredients(sys, param, opt)
     dtype = jnp.float64 if opt.precision == "double" else jnp.float32
     n, m, N, nm = ing["n"], ing["m"], ing["N"], ing["nm"]
     nz1, nrow = ing["nz1"], ing["nrow"]
-    if backend == "fused":
-        _solve_f = _build_mpct_eadmm_fused(ing, opt)
-        return BatchedSolver(_solve_f, ing, opt, n=n, m=m, N=N, nz=nz1,
-                             dtype=dtype)
     tol = float(opt.solver["tol"])
     k_max = int(opt.solver["k_max"])
 
@@ -423,7 +311,7 @@ def mpct_cs_equality_matrix(A: np.ndarray, B: np.ndarray, N: int):
 
 def mpct_admm_cs_ingredients(sys: dict, param: dict, opt: Options) -> dict:
     """Offline ingredients (compute_MPCT_ADMM_cs_ingredients.m:83-141).
-    TPU-native: the reference's CSR SpMV + sparse LDL pipeline collapses
+    Batched form: the reference's CSR SpMV + sparse LDL pipeline collapses
     into the dense affine map z = M_q q_hat + M_b x0."""
     A, B, n, m = get_sys_matrices(sys)
     N = int(param["N"])
@@ -475,7 +363,7 @@ def mpct_admm_cs_ingredients(sys: dict, param: dict, opt: Options) -> dict:
 def mpct_cs_banded_ingredients(sys: dict, param: dict, opt: Options) -> dict:
     """O(N)-memory structured ingredients for MPCT ADMM-cs — the
     long-horizon path (the role the reference's CSR/LDL sparsity plays,
-    compute_MPCT_ADMM_cs_ingredients.m:124-141, done the TPU way: stacked
+    compute_MPCT_ADMM_cs_ingredients.m:124-141, done the batched way: stacked
     stage blocks + a block-tridiagonal Cholesky, never forming dense
     H/G/W/M_q).
 
@@ -622,22 +510,19 @@ def _make_cs_banded_z_step(ing, dtype, parallel_scan=False):
     return z_step
 
 
-@register_builder("MPCT", "ADMM", "cs")
+@register_builder("MPCT", "ADMM", "cs", backends=("dense", "banded"))
 def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
                        backend: str = "dense") -> BatchedSolver:
     """MPCT via ADMM on the extended (x_i, x_s, u_i, u_s) state space
     (code_MPCT_ADMM_cs_C.c:94-218, spcies_MPCT_ADMM_cs_solver.m).
     backend='banded' is the O(N)-memory long-horizon path (stage-local
     ops + block-tridiagonal Cholesky scan, mpct_cs_banded_ingredients)."""
-    if backend not in ("dense", "fused", "banded"):
-        raise ValueError(
-            "MPCT/ADMM-cs has dense, banded and fused backends")
     if opt.time_varying:
         # per-lane time-varying models (VERDICT r4 next-#6): beyond the
         # reference, which has no TV mode for MPCT at all — the SURVEY §7
         # "TV for free on every solver" design note, delivered through
-        # the O(N) banded path (the only feasible one at long horizons,
-        # BENCH_LONGN memory-wall measurement)
+        # the O(N) banded path (the only one whose per-lane memory stays
+        # linear in the horizon)
         return _tv_cs_banded_solver(sys, param, opt)
     if backend == "banded":
         return _build_mpct_cs_banded(sys, param, opt)
@@ -668,16 +553,6 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
             [jnp.zeros_like(x0), -(xr @ T.T) / N,
              jnp.zeros_like(ur), -(ur @ S.T) / N], axis=-1)
         return jnp.tile(qstage, (1, N))
-
-    if backend == "fused":
-        from spcies_tpu.solvers.fused_backend import (
-            build_fused_box_admm_solve)
-        _solve_f = build_fused_box_admm_solve(
-            ing, opt, dtype, make_q_ref=_cs_q_ref,
-            make_aux_b=lambda x0, xr, ur: x0 @ M_b.T,
-            u_start=2 * n, lb_key="LB", ub_key="UB")
-        return BatchedSolver(_solve_f, ing, opt, n=n, m=m, N=N, nz=nz,
-                             dtype=dtype)
 
     def proj(y):
         return proj_box(y, LB, UB)
@@ -758,8 +633,7 @@ def _tv_cs_banded_solver(sys: dict, param: dict,
     equality stage maps, and the block-tridiagonal W factors — are
     rebuilt inside the jitted solve (kernels.online_band_chol.
     online_band_chol_tridiag), so memory stays O(B N (2n+m)^2): the
-    regime where any dense per-lane W is infeasible (BENCH_LONGN
-    memory-wall cells). No reference counterpart: the reference has no
+    regime where any dense per-lane W is infeasible. No reference counterpart: the reference has no
     TIME_VARYING mode for MPCT (cons_laxMPC_ADMM_C.m:47-52 scope).
     """
     from spcies_tpu.kernels.band_chol import (band_chol_solve,
@@ -969,12 +843,12 @@ def mpct_admm_semiband_ingredients(sys: dict, param: dict,
                                    structured: bool = False) -> dict:
     """Offline ingredients (compute_MPCT_ADMM_semiband_ingredients.m).
 
-    TPU-native, two arms:
+    Two arms:
       structured=False — the reference's two-level Woodbury (banded
         Gamma_hat + rank-2(n+m) correction, ECC'24) exists to avoid dense
         factorization on embedded CPUs; here the same KKT solve collapses
         into the dense affine map z = M_q p + M_b x0 — algebraically
-        identical, one MXU matmul online. O(N^2) memory; right for the
+        identical, one matmul online. O(N^2) memory; right for the
         contracted N~10-30.
       structured=True — the long-horizon path keeping the reference's
         O(N) memory (compute_MPCT_ADMM_semiband_ingredients.m:163-227):
@@ -1171,7 +1045,7 @@ def mpct_admm_semiband_ingredients(sys: dict, param: dict,
 
 def _make_semiband_structured_z_step(ing, dtype, parallel_scan=False):
     """z_step(p, x0 | None) for the O(N)-memory semiband backend — the
-    TPU rendering of the reference's Alg. 2 two-level Woodbury
+    batched rendering of the reference's Alg. 2 two-level Woodbury
     (code_MPCT_ADMM_semiband_C.c:119-496): block-diagonal Gamma_hat
     solves + rank-2(n+m) level-1 correction, block-tridiagonal Cholesky
     scan on Gamma_tilde + level-2 correction. All online ops are
@@ -1238,7 +1112,8 @@ def _make_semiband_structured_z_step(ing, dtype, parallel_scan=False):
     return z_step
 
 
-@register_builder("MPCT", "ADMM", "semiband")
+@register_builder("MPCT", "ADMM", "semiband",
+                  backends=("dense", "banded"))
 def build_mpct_admm_semiband(sys: dict, param: dict, opt: Options,
                              backend: str = "dense") -> BatchedSolver:
     """MPCT via ADMM on the semiband (non-extended) parameterization

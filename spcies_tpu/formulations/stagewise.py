@@ -5,8 +5,8 @@ z = (u_0, x_1, u_1, ..., x_{N-1}, u_{N-1}[, x_N]) and the equality matrix G
 is block-banded (reference Aeq construction,
 compute_laxMPC_ADMM_ingredients.m:80-86 /
 compute_equMPC_ADMM_ingredients.m:85). Instead of materializing G, these
-helpers apply G and G^T blockwise — each block op is a small batched matmul
-that XLA maps onto the MXU, and memory stays O(N n (n+m)) like the
+helpers apply G and G^T blockwise — each block op is a small batched
+matmul, and memory stays O(N n (n+m)) like the
 reference's banded C loops (code_laxMPC_ADMM_C.c:355-381, :453-485).
 
 Layout convention: z splits into z0 [B, m] (u_0), zm [B, N-1, n+m]

@@ -6,11 +6,11 @@ the stagewise forward+backward substitution at the heart of the reference's
 laxMPC/equMPC/MPCT/ellipMPC solvers (canonical standalone version:
 code_laxMPC_FISTA_C.c:577-652, `solve_W_matrix_form`).
 
-TPU-first design: instead of the reference's scalar triangular loops with
+Batched design: instead of the reference's scalar triangular loops with
 inverted Beta diagonals, each Beta block's full inverse is precomputed
 offline (they are tiny n x n upper-triangular matrices), so the online
 recursion is 2N dependent [B, n] @ [n, n] matmuls inside two lax.scans —
-latency-bound per lane but batched over B lanes on the MXU. Row-vector
+latency-bound per lane but batched over B lanes. Row-vector
 convention throughout: y_l = (rhs_l - y_{l-1} Alpha_{l-1}) BetaInv_l,
 mu_l = (y_l - mu_{l+1} Alpha_l^T) BetaInv_l^T.
 """

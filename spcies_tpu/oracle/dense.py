@@ -3,7 +3,7 @@
 These mirror the reference's non-sparse MATLAB solvers
 (platforms/Matlab/spcies_*_solver.m) and their dense helpers
 solve_eqQP.m / solve_boxQP.m: readable, per-problem, no batching, no JAX.
-The differential tests require the batched TPU solvers to agree with these
+The differential tests require the batched solvers to agree with these
 to ~1e-9 class tolerances in fp64 (the reference's sparse-vs-oracle contract
 is 1e-10, tests/spcies_tester.m:260).
 """

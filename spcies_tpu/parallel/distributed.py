@@ -5,13 +5,15 @@ The reference is single-process/single-thread (SURVEY.md §2.8 — no
 MPI/NCCL anywhere); this module is the new-framework side of the
 BASELINE "scaling efficiency at >= 2 hosts" contract. Design:
 
-- `initialize()` wraps `jax.distributed.initialize` (idempotent;
-  auto-detects cluster env on TPU pods, explicit args for manual
-  bring-up). After it, `jax.devices()` is the GLOBAL device list and
-  collectives ride ICI within a host/slice and DCN across hosts.
+- `initialize()` wraps `jax.distributed.initialize` (idempotent; uses
+  JAX's cluster auto-detection where the environment provides one,
+  explicit coordinator address / process count / process id otherwise).
+  After it, `jax.devices()` is the GLOBAL device list. XLA hands the
+  collectives to NCCL on GPUs: over NVLink between the cards of a host,
+  over the network between hosts.
 - `host_chip_mesh()` builds a 2-D (host, chip) mesh from the global
-  device list, so shardings can keep intra-host traffic on ICI and
-  reserve DCN for the host axis.
+  device list, so shardings can keep traffic inside a host and use the
+  host axis only for what must cross hosts.
 - `shard_map_solver()` wraps a BatchedSolver's jittable solve in
   `shard_map` over the batch axes: every device runs the ENTIRE masked
   while-loop on its local lane shard, so termination is per-shard and
@@ -22,7 +24,7 @@ BASELINE "scaling efficiency at >= 2 hosts" contract. Design:
   k and e_flag are bit-identical to the global loop: converged lanes are
   frozen, so where the loop stops only affects wasted work, not results.
 - `global_fleet_metrics()` psum-reduces converged counts / iteration
-  statistics over the whole mesh (ICI + DCN), off the hot path —
+  statistics over the whole mesh, off the hot path —
   the multi-host analogue of the reference's per-solve timers.
 
 Multi-host bring-up (one process per host):
@@ -57,9 +59,10 @@ def initialize(coordinator_address: str | None = None,
                local_device_ids=None) -> bool:
     """Bring up the JAX distributed runtime (idempotent).
 
-    With no arguments, relies on JAX's cluster auto-detection (TPU pod
-    metadata, GKE, Slurm, ...). For manual bring-up pass the coordinator
-    address ('host:port'), the total process count and this process's id.
+    With no arguments, relies on JAX's cluster auto-detection (Slurm,
+    GKE, ...). Where nothing describes the cluster, as on a single
+    machine with several cards, pass the coordinator address
+    ('host:port'), the total process count and this process's id.
     Returns True if the runtime is (now) initialized for >1 process,
     False for the single-process no-op case.
     """
@@ -88,9 +91,9 @@ def is_distributed() -> bool:
 def host_chip_mesh(axis_names: tuple[str, str] = ("host", "chip"),
                    devices=None) -> Mesh:
     """2-D (host, chip) mesh over the global device list: axis 0 is the
-    process/host dimension (DCN), axis 1 the per-host devices (ICI).
-    Works single-process too (host axis of size 1), so code written
-    against this mesh runs unchanged from laptop to pod."""
+    process/host dimension, axis 1 the per-host devices. Works
+    single-process too (host axis of size 1), so code written against
+    this mesh runs unchanged from one card to several hosts."""
     if devices is None:
         devices = jax.devices()
     n_hosts = max(d.process_index for d in devices) + 1
@@ -192,8 +195,7 @@ def global_fleet_metrics(result, mesh: Mesh | None = None):
     """Fleet metrics reduced over every device (and host) holding the
     result: converged count, iteration stats. Computed with a jitted
     global reduction, so on a multi-host mesh the reduction runs as XLA
-    collectives (ICI within host, DCN across) and every process returns
-    the same global values."""
+    collectives and every process returns the same global values."""
     @jax.jit
     def _reduce(k, e):
         kf = k.astype(jnp.float32)

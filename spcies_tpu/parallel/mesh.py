@@ -8,7 +8,7 @@ counts, iteration histograms) are psum-reduced off the hot path.
 NOTE on the hot loop: `sharded_solver` relies on jit auto-partitioning, so
 in the default convergence-checked mode the masked loop's "any lane
 active" test IS a per-iteration cross-device all-reduce (one bool per
-device over ICI); only `fixed_iters` mode is collective-free here. The
+device); only `fixed_iters` mode is collective-free here. The
 production scale-out path is `parallel.distributed.shard_map_solver`,
 which runs the whole loop per-shard (per-shard termination, zero
 per-iteration collectives, identical per-lane results under freeze
@@ -42,7 +42,7 @@ def sharded_solver(solver, mesh: Mesh, axis_name: str = "batch"):
     Because every per-lane update is independent, jit + sharded inputs is
     sufficient: XLA partitions the whole while-loop body across devices with
     no communication except the loop's any-active reduction (an all-reduce
-    of one bool per device per iteration over ICI).
+    of one bool per device per iteration).
     """
     def solve(*inputs, **kw):
         inputs = [jnp.asarray(a, solver.dtype) for a in inputs]
@@ -57,7 +57,7 @@ def fleet_metrics(result, mesh: Mesh | None = None):
     the psum-style reductions that replace the reference's per-solve timers
     (docs/timing.md) at fleet scale. Runs as a tiny jitted reduction over the
     sharded result arrays, so cross-device reduction happens via XLA
-    collectives over ICI."""
+    collectives."""
     k = result.k
     e = result.e_flag
     return dict(

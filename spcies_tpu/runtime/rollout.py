@@ -2,7 +2,7 @@
 
 The reference's closed-loop demos step MATLAB <-> MEX once per control
 period (examples/cl_in_C/main_cl_in_C.c:60-115 and
-examples/t00_basic_tutorial.m:160-180). TPU-natively the entire receding
+examples/t00_basic_tutorial.m:160-180). Here the entire receding
 horizon loop — solve, apply first input, propagate the plant, warm-start
 the next solve — runs as ONE jitted lax.scan over control steps, batched
 over B independent closed loops, with zero host round trips.
@@ -151,14 +151,11 @@ def closed_loop_rollout(solver, A, B, x0, xr, ur, *, n_steps: int,
 
         @jax.jit
         def run(x0, xr, ur, A, B, noise, init0):
-            # full-f32 matmul precision at trace time: the scan calls
-            # solver.raw_fn directly (not BatchedSolver.__call__, which
-            # applies this context per call), and TPU's default matmul
-            # precision truncates fp32 operands to bf16 — measured to
-            # stall warm-started closed-loop solves near tol and erase
-            # the entire warm-start benefit (k_mean 225 vs 8 per step on
-            # the bench workload). Fused kernels self-shield with a
-            # nested "default" context around their pallas_call.
+            # full-f32 matmul precision at trace time, as in
+            # BatchedSolver.__call__: the scan calls solver.raw_fn
+            # directly, and a reduced-precision product (TF32 on a GPU)
+            # with O(1) operands stalls warm-started solves near tol and
+            # erases the warm-start benefit.
             with jax.default_matmul_precision("highest"):
                 (_, _), (xs, us, ks, es) = jax.lax.scan(
                     lambda c, w: step_fn(c, w, xr, ur, A, B), (x0, init0),

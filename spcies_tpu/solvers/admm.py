@@ -11,11 +11,11 @@ MPCT-cs ADMM solvers (canonical version: code_laxMPC_ADMM_C.c:308-633):
                         and ||v - v_prev||_inf <= tol  (fixed point)
 
 The engine is generic over `z_step` (the equality-QP solve — dense affine
-map, banded Alpha/Beta scan, or a Pallas kernel) and `proj` (box /
+map or banded Alpha/Beta scan) and `proj` (box /
 box+ellipsoid / cone projections), which is exactly the axis along which
 the reference formulations differ.
 
-Delta-form iteration (TPU fp32 enabler, on by default): the z-step is
+Delta-form iteration (the fp32 enabler, on by default): the z-step is
 affine in q_hat, so after one full solve the update can be computed
 incrementally:
 
@@ -98,13 +98,13 @@ def admm_solve(
 
     if z_lin is not None:
         # Delta form: peel the single full equality-QP solve out of the
-        # loop (a lax.cond inside the body would make TPU execute both
+        # loop (a lax.cond inside the body would select between both
         # branches every iteration). The body consumes the z prepared by
         # the previous iteration and prepares the next one incrementally.
         z1 = z_step(q_ref + lam0 - rho * v0)
         # carry is deliberately minimal — the masked loop reads, writes
         # and mask-blends every leaf each iteration, so each extra [B, nz]
-        # leaf costs 3x its size in HBM traffic per iteration. In
+        # leaf costs 3x its size in device-memory traffic per iteration. In
         # free-running mode the consumed-z leaf is dropped entirely (the
         # returned z is then the prepared iterate, one solve fresher).
         state0 = dict(z_next=z1, v=v0, lam=lam0, r_p=rinf, r_d=rinf)
@@ -174,9 +174,8 @@ def admm_solve(
         # (lax.cond at batch granularity); converged lanes stay frozen.
         # Validated on the stalled state: compensated f32 converges in
         # ~1431 extra-precision iterations where plain f32 never exits
-        # (fp64 reference: 1448). TPU-native double-precision analogue
-        # of the reference C's double math exit contract
-        # (code_laxMPC_ADMM_C.c:570-631).
+        # (fp64 reference: 1448). An f32 analogue of the reference C's
+        # double math exit contract (code_laxMPC_ADMM_C.c:570-631).
         budget = int(straggler_polish)
         # The continuation must consume the PREPARED next iterate
         # (state['z_next']), not the consumed one — the delta-form

@@ -48,18 +48,20 @@ def hist_sol_entries(hist):
 
 
 def delta_dot(x, M):
-    """x @ M at DEFAULT (single-pass) matmul precision — for delta-form
-    products whose operands shrink to zero with the residual, where the
-    truncation error vanishes (see the solver-level highest-precision
-    wrap in api.BatchedSolver.__call__; commit eff0082)."""
+    """x @ M for the delta-form products (z_{k+1} = z_k + M dq_k) in full
+    f32. Each product's rounding error enters z and no later iteration
+    removes it, so the errors add up over the iterations: with TF32
+    operands (a GPU's default for f32 products) the headline's z ends
+    about 8x further from the fp64 optimum than with f32 ones, and per-lane
+    exits then depend on the GEMM algorithm XLA picks (PERF.md)."""
     import jax
-    return jax.lax.dot(x, M, precision=jax.lax.Precision.DEFAULT)
+    return jax.lax.dot(x, M, precision=jax.lax.Precision.HIGHEST)
 
 
 def delta_dot_op(op, x):
-    """Apply a linear operator to a shrinking delta at DEFAULT matmul
-    precision (the operator-callback form of delta_dot, for matrix-free
-    ops like the stagewise G/G^T applies)."""
+    """Apply a linear operator to a delta in full f32 (the
+    operator-callback form of delta_dot, for matrix-free ops like the
+    stagewise G/G^T applies)."""
     import jax
-    with jax.default_matmul_precision("default"):
+    with jax.default_matmul_precision("highest"):
         return op(x)

@@ -25,13 +25,11 @@ iterate semantics):
 DELTA FORM (same rationale as the ADMM engines): q = q_ref - G^T y and
 r = b - G z are maintained incrementally — q -= G^T dy, r -= G dz — so
 every per-iteration matmul has operands that shrink to zero with the
-residual. On TPU this means single-pass default MXU precision is safe
-(the direct form's O(1)-operand G^T y product would need the 6-pass
-full-f32 path; see commit eff0082), and the fused Pallas kernel
-(kernels/fused_fista.py) runs the SAME recursion, giving bit-identical
-interpret-mode parity. Accumulated rounding is a geometric series of the
-shrinking deltas, bounded like the delta-ADMM case. The W^{-1} r product
-keeps its direct form (r -> 0 already).
+residual, so their rounding error shrinks with it (the direct form's
+O(1)-operand G^T y product would need full-f32 precision throughout).
+Accumulated rounding is a geometric series of the shrinking deltas,
+bounded like the delta-ADMM case. The W^{-1} r product keeps its direct
+form (r -> 0 already).
 """
 
 from __future__ import annotations

@@ -120,7 +120,7 @@ def band_chol_blocks_tridiag(Wd: np.ndarray, Wu: np.ndarray):
 
 def full2csr(M: np.ndarray, tol: float = 1e-14):
     """Dense -> CSR triplet (val, col, row_ptr), the host-side analogue of
-    +sp_utils/full2CSR.m. Only used offline; online TPU kernels use
+    +sp_utils/full2CSR.m. Only used offline; the online solvers use
     structured dense forms instead of generic sparsity."""
     nr, nc = M.shape
     val, col, row_ptr = [], [], [0]
@@ -152,7 +152,7 @@ def full2csc(M: np.ndarray, tol: float = 1e-14):
 
 def csr_matvec(val, col, row_ptr, x):
     """CSR sparse mat-vec (+sp_utils/smv.m:23-35). Host-side reference; the
-    online TPU kernels use structured dense forms instead of generic
+    online solvers use structured dense forms instead of generic
     sparsity (SURVEY.md §7)."""
     nr = len(row_ptr) - 1
     y = np.zeros(nr)

@@ -2,9 +2,9 @@
 
 The reference implements these as scalar three-case branches
 (+sp_utils/proj_SOC.m, proj_SSOC.m, proj_D.m, snippets/proj_SOC3.c:4-35,
-code_ellipMPC_ADMM_C.c:321-351, solve_boxQP.m:44-63). On TPU every branch
-becomes a `jnp.where` select so the whole batch is projected on the VPU
-without divergence. All functions accept arbitrary leading batch dims and
+code_ellipMPC_ADMM_C.c:321-351, solve_boxQP.m:44-63). Here every branch
+becomes a `jnp.where` select so the whole batch is projected without
+divergence. All functions accept arbitrary leading batch dims and
 operate on the trailing axis.
 """
 

@@ -204,10 +204,8 @@ def test_problem_recipe(tmp_path):
 
 
 def test_auto_backend_selection():
-    """backend='auto' probes the available backends at build time and
-    returns the fastest (VERDICT r3 next-#2: fused must never silently
-    underperform; at tiny nz the 128-lane padding penalty makes dense the
-    right choice, at long horizons banded/fused win)."""
+    """backend='auto' probes the triple's backends at build time and
+    returns the fastest."""
     import spcies_tpu as sp
     import numpy as np
     sys_, param, st = sp.systems.tester_fixture()
@@ -215,8 +213,8 @@ def test_auto_backend_selection():
                        backend="auto", rho=15.0, tol=1e-6, k_max=5000,
                        auto_probe_batch=64, auto_probe_iters=5,
                        auto_probe_reps=1)
-    assert s.backend_choice in ("dense", "fused", "banded")
-    assert set(s.backend_probe_s) >= {"dense", "banded"}
+    assert s.backend_choice in ("dense", "banded")
+    assert set(s.backend_probe_s) == {"dense", "banded"}
     # the chosen solver still solves correctly
     res = s(st["x"], st["xr"], st["ur"])
     assert int(res.e_flag[0]) == 1
@@ -267,6 +265,7 @@ def test_auto_backend_probe_cache(tmp_path, monkeypatch):
     def counting(sys, param, opt, backend="dense"):
         builds.append(backend)
         return real(sys, param, opt, backend=backend)
+    counting.backends = real.backends
 
     monkeypatch.setitem(fbase.BUILDERS, ("laxMPC", "ADMM", ""), counting)
 

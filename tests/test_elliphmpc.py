@@ -103,27 +103,3 @@ def test_harmonic_amplitude_in_dset(fixture):
         assert amp <= (sys["UBy"][j] - sig) - ye + tol
 
 
-@pytest.mark.parametrize("use_soc", [False, True])
-def test_fused_backend_matches_dense(fixture, use_soc):
-    """backend='fused' (segment-layout VMEM kernel) reproduces the dense
-    ellipHMPC engine's per-lane iteration counts (interpret mode)."""
-    sys, param, st = fixture
-    kw = dict(use_soc=use_soc, **OPTS)
-    o = sp.default_options("ellipHMPC", "ADMM", pallas_interpret=True,
-                           tile_b=8, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, param, formulation="ellipHMPC",
-                         method="ADMM", backend="fused", options=o)
-    od = sp.default_options("ellipHMPC", "ADMM", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, param, formulation="ellipHMPC",
-                         method="ADMM", options=od)
-    args = _refs(st)
-    rf = s_f(*args)
-    rd = s_d(*args)
-    np.testing.assert_array_equal(np.asarray(rf.k), np.asarray(rd.k))
-    assert np.all(np.asarray(rf.e_flag) == 1)
-    for key in ("z", "s", "lam"):
-        gap = np.max(np.abs(np.asarray(rf.sol[key])
-                            - np.asarray(rd.sol[key])))
-        assert gap < 1e-4, (key, gap)

@@ -165,218 +165,3 @@ def test_admm_batched_masking(admm_solver, fixture):
         np.testing.assert_allclose(np.asarray(batched.sol["z"][i]),
                                    np.asarray(solo.sol["z"][0]),
                                    rtol=0, atol=1e-12)
-
-
-# ---------------------------------------------------------------------------
-# fused backend (kernels/fused_ellip.py, interpret mode on CPU)
-# ---------------------------------------------------------------------------
-
-FUSED_OPTS = dict(rho=15.0, tol=1e-4, k_max=5000)
-
-
-def _fused_pair(fixture, **extra):
-    sys, param, _ = fixture
-    kw = {**FUSED_OPTS, **extra}
-    opts = sp.default_options("ellipMPC", "ADMM",
-                              pallas_interpret=True, tile_b=8, **kw)
-    opts.precision = "float"
-    s_f = sp.make_solver(sys, param, formulation="ellipMPC", method="ADMM",
-                         backend="fused", options=opts)
-    opts_d = sp.default_options("ellipMPC", "ADMM",
-                                **{k: v for k, v in kw.items()
-                                   if k not in ("check_every", "exact_k")})
-    opts_d.precision = "float"
-    s_d = sp.make_solver(sys, param, formulation="ellipMPC", method="ADMM",
-                         backend="dense", options=opts_d)
-    return s_f, s_d
-
-
-def test_fused_matches_dense(fixture):
-    """The transformed-coordinate kernel must track the dense fp32 engine:
-    identical iteration counts and iterates to f32 rounding-order noise
-    (the P_half re-coordinatization changes summation orders, so bit
-    equality is not expected — unlike the box-only fused kernel)."""
-    _, _, st = fixture
-    s_f, s_d = _fused_pair(fixture)
-    rng = np.random.default_rng(0)
-    B = 8
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2, 2, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    rf = s_f(x0, xr, ur)
-    rd = s_d(x0, xr, ur)
-    assert np.max(np.abs(np.asarray(rf.k) - np.asarray(rd.k))) <= 1
-    np.testing.assert_array_equal(np.asarray(rf.e_flag),
-                                  np.asarray(rd.e_flag))
-    for key in ("z", "v", "lam"):
-        assert np.max(np.abs(np.asarray(rf.sol[key])
-                             - np.asarray(rd.sol[key]))) < 5e-4
-
-
-def test_fused_vs_golden(fixture):
-    """Fixed-point quality guard: the fused solve must land on the same
-    optimum as the fp64 golden vector (catches systematic in-kernel
-    precision drift shifting the ADMM fixed point)."""
-    _, _, st = fixture
-    s_f, _ = _fused_pair(fixture)
-    res = s_f(st["x"], st["xr"], st["ur"])
-    assert int(res.e_flag[0]) == 1
-    assert np.max(np.abs(np.asarray(res.sol["z"][0]) - Z_OPT)) <= 1e-2
-
-
-def test_fused_warm_start_and_check_every(fixture):
-    _, _, st = fixture
-    s_f, _ = _fused_pair(fixture)
-    cold = s_f(st["x"], st["xr"], st["ur"])
-    init = (cold.sol["z"], cold.sol["v"], cold.sol["lam"])
-    warm = s_f(st["x"], st["xr"], st["ur"], init=init)
-    assert int(warm.k[0]) < int(cold.k[0])
-    s_c, _ = _fused_pair(fixture, check_every=8)
-    rc = s_c(st["x"], st["xr"], st["ur"])
-    assert int(rc.e_flag[0]) == 1
-    assert int(rc.k[0]) % 8 == 0 or int(rc.k[0]) <= int(cold.k[0]) + 8
-
-
-def test_fused_rejects_fp64(fixture):
-    sys, param, _ = fixture
-    with pytest.raises(ValueError, match="fp32"):
-        sp.make_solver(sys, param, formulation="ellipMPC", method="ADMM",
-                       backend="fused", **FUSED_OPTS)
-
-
-def test_soc_fused_matches_dense(fixture):
-    """backend='fused' for ADMM-soc (kernels/fused_soc.py, VERDICT r2
-    next-#5): identical per-lane iteration counts and fp32-roundoff
-    iterate agreement with the dense engine, including the runtime
-    radius input (code_ellipMPC_ADMM_soc_C.c:20)."""
-    sys, param, st = fixture
-    p = dict(param)
-    p["r"] = 0.5
-    kw = dict(rho=15.0, sigma=1.0, tol_p=1e-5, tol_d=1e-5, k_max=5000)
-    o = sp.default_options("ellipMPC", "ADMM", "soc",
-                           pallas_interpret=True, tile_b=8, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, p, formulation="ellipMPC", method="ADMM",
-                         submethod="soc", backend="fused", options=o)
-    od = sp.default_options("ellipMPC", "ADMM", "soc", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, p, formulation="ellipMPC", method="ADMM",
-                         submethod="soc", options=od)
-    B = 8
-    rng = np.random.default_rng(3)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    for r_run in (None, np.full((B, 1), 0.3, np.float32)):
-        args = (x0, xr, ur) if r_run is None else (x0, xr, ur, r_run)
-        rf = s_f(*args)
-        rd = s_d(*args)
-        np.testing.assert_array_equal(np.asarray(rf.k), np.asarray(rd.k))
-        assert np.all(np.asarray(rf.e_flag) == 1)
-        for key in ("z", "s", "lam", "mu"):
-            gap = np.max(np.abs(np.asarray(rf.sol[key])
-                                - np.asarray(rd.sol[key])))
-            assert gap < 1e-3, (key, gap)
-
-
-def test_soc_fused_check_every_and_warm_start(fixture):
-    sys, param, st = fixture
-    p = dict(param)
-    p["r"] = 0.5
-    kw = dict(rho=15.0, sigma=1.0, tol_p=1e-5, tol_d=1e-5, k_max=5000)
-    o = sp.default_options("ellipMPC", "ADMM", "soc",
-                           pallas_interpret=True, tile_b=8,
-                           check_every=4, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, p, formulation="ellipMPC", method="ADMM",
-                         submethod="soc", backend="fused", options=o)
-    od = sp.default_options("ellipMPC", "ADMM", "soc", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, p, formulation="ellipMPC", method="ADMM",
-                         submethod="soc", options=od)
-    res_d = s_d(st["x"], st["xr"], st["ur"])
-    res = s_f(st["x"], st["xr"], st["ur"])
-    assert int(res.e_flag[0]) == 1
-    # windowed exit: k within one check window of the dense count
-    assert abs(int(res.k[0]) - int(res_d.k[0])) <= 4
-    # warm start from the dense exit: near-immediate convergence
-    rws = s_f(st["x"], st["xr"], st["ur"],
-              init=(res_d.sol["z"], res_d.sol["s"],
-                    res_d.sol["lam"], res_d.sol["mu"]))
-    assert int(rws.k[0]) <= 8
-
-
-def test_soc_fused_rejects_fp64(fixture):
-    sys, param, _ = fixture
-    with pytest.raises(ValueError, match="fp32"):
-        sp.make_solver(sys, param, formulation="ellipMPC", method="ADMM",
-                       submethod="soc", backend="fused", **SOC_OPTS)
-
-
-def test_fused_exact_k(fixture):
-    """exact_k free-run (window snapshot + per-iteration replay,
-    kernels/fused_admm.py pattern; VERDICT r4 next-#5): bit-identical to
-    the kernel's own check_every=1 exact mode — k, e_flag, iterates —
-    including the k_max-capped path."""
-    _, _, st = fixture
-    rng = np.random.default_rng(5)
-    B = 8
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2, 2, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    s_exact, _ = _fused_pair(fixture)
-    s_ek, _ = _fused_pair(fixture, check_every=8, exact_k=True)
-    r1 = s_exact(x0, xr, ur)
-    r2 = s_ek(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1.k), np.asarray(r2.k))
-    np.testing.assert_array_equal(np.asarray(r1.e_flag),
-                                  np.asarray(r2.e_flag))
-    for key in ("z", "v", "lam"):
-        np.testing.assert_array_equal(np.asarray(r1.sol[key]),
-                                      np.asarray(r2.sol[key]))
-    # capped path
-    s_exact_c, _ = _fused_pair(fixture, tol=1e-13, k_max=19)
-    s_ek_c, _ = _fused_pair(fixture, tol=1e-13, k_max=19, check_every=8,
-                            exact_k=True)
-    r1c = s_exact_c(x0, xr, ur)
-    r2c = s_ek_c(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1c.k), np.asarray(r2c.k))
-    for key in ("z", "v", "lam"):
-        np.testing.assert_array_equal(np.asarray(r1c.sol[key]),
-                                      np.asarray(r2c.sol[key]))
-
-
-def test_soc_fused_exact_k(fixture):
-    """exact_k for the slack-SOC split kernel: bit-identical to its own
-    check_every=1 exact mode, including the k_max-capped path."""
-    sys, param, st = fixture
-    kw = dict(rho=5.0, sigma=4.0, tol_p=1e-5, tol_d=1e-5, k_max=3000)
-
-    def build(**extra):
-        o = sp.default_options("ellipMPC", "ADMM", "soc",
-                               pallas_interpret=True, tile_b=8,
-                               **{**kw, **extra})
-        o.precision = "float"
-        return sp.make_solver(sys, param, formulation="ellipMPC",
-                              method="ADMM", submethod="soc",
-                              backend="fused", options=o)
-
-    B = 8
-    rng = np.random.default_rng(21)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2, 2, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    r_run = np.full((B, 1), 0.5)
-    r1 = build()(x0, xr, ur, r_run)
-    r2 = build(check_every=8, exact_k=True)(x0, xr, ur, r_run)
-    np.testing.assert_array_equal(np.asarray(r1.k), np.asarray(r2.k))
-    np.testing.assert_array_equal(np.asarray(r1.e_flag),
-                                  np.asarray(r2.e_flag))
-    for key in r1.sol:
-        if hasattr(r1.sol[key], "shape"):
-            np.testing.assert_array_equal(np.asarray(r1.sol[key]),
-                                          np.asarray(r2.sol[key]))
-    r1c = build(tol_p=1e-13, tol_d=1e-13, k_max=19)(x0, xr, ur, r_run)
-    r2c = build(tol_p=1e-13, tol_d=1e-13, k_max=19, check_every=8,
-                exact_k=True)(x0, xr, ur, r_run)
-    np.testing.assert_array_equal(np.asarray(r1c.k), np.asarray(r2c.k))

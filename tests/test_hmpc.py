@@ -103,128 +103,6 @@ def test_batched_masking(fixture):
                                    rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("use_soc", [False, True])
-def test_fused_backend_matches_dense(fixture, use_soc):
-    """backend='fused' (VMEM-resident segment-layout kernel,
-    kernels/fused_hmpc.py): same per-lane iteration counts as the dense
-    engine and fp32-roundoff iterate agreement (interpret mode)."""
-    sys, param, st = fixture
-    kw = dict(rho=2.0, sigma=20.0, tol_p=1e-5, tol_d=1e-5, k_max=2000,
-              use_soc=use_soc)
-    o = sp.default_options("HMPC", "ADMM", pallas_interpret=True,
-                           tile_b=8, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, param, formulation="HMPC", method="ADMM",
-                         backend="fused", options=o)
-    od = sp.default_options("HMPC", "ADMM", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, param, formulation="HMPC", method="ADMM",
-                         options=od)
-    B = 8
-    rng = np.random.default_rng(7)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    rf = s_f(x0, xr, ur)
-    rd = s_d(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(rf.k), np.asarray(rd.k))
-    assert np.all(np.asarray(rf.e_flag) == 1)
-    for key in ("z", "s", "lam"):
-        gap = np.max(np.abs(np.asarray(rf.sol[key])
-                            - np.asarray(rd.sol[key])))
-        assert gap < 1e-4, (key, gap)
-
-
-@pytest.mark.parametrize("method", ["ADMM", "SADMM"])
-@pytest.mark.parametrize("use_soc", [False, True])
-def test_fused_split_matches_dense(fixture, method, use_soc):
-    """backend='fused' for the two-block split (S)ADMM
-    (kernels/fused_split.py): same per-lane iteration counts as the dense
-    engine and fp32-roundoff iterate agreement (interpret mode). The SADMM
-    half-step dual ordering must be preserved (code_HMPC_ADMM_split_C.c:
-    215-225)."""
-    sys, param, st = fixture
-    # use_soc=True has an fp32 residual floor ~4e-4 on this fixture (a few
-    # ulp of the O(600) harmonic cone-row magnitudes) — BOTH engines stall
-    # below it, so the SOC variant tests at 1e-3
-    tol = 1e-5 if not use_soc else 1e-3
-    kw = dict(rho=2.0, sigma=20.0, tol_p=tol, tol_d=tol, k_max=3000,
-              use_soc=use_soc)
-    o = sp.default_options("HMPC", method, "split",
-                           pallas_interpret=True, tile_b=8, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, param, formulation="HMPC", method=method,
-                         submethod="split", backend="fused", options=o)
-    od = sp.default_options("HMPC", method, "split", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, param, formulation="HMPC", method=method,
-                         submethod="split", options=od)
-    B = 8
-    rng = np.random.default_rng(11)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    rf = s_f(x0, xr, ur)
-    rd = s_d(x0, xr, ur)
-    # the kernel's segment-permuted KKT matmul contracts in a different
-    # order than the dense engine's; the per-iteration algebra is exact
-    # (k_max=1 gap is 0) but fp32 rounding differences accumulate through
-    # the dual over ~1e3 iterations, so exits at the tolerance boundary
-    # can shift by a few iterations (both engines converge to the same
-    # fixed point — the iterate assertions below)
-    assert np.max(np.abs(np.asarray(rf.k, np.int64)
-                         - np.asarray(rd.k, np.int64))) <= 5
-    assert np.all(np.asarray(rf.e_flag) == 1)
-    # both engines stop within (r_p, r_d) <= tol of the same fixed point;
-    # the iterate gap between the two exit points scales with tol times
-    # the problem conditioning (duals are less tightly pinned by the
-    # primal-change residual, hence the looser dual bound)
-    for key in ("z", "s"):
-        gap = np.max(np.abs(np.asarray(rf.sol[key])
-                            - np.asarray(rd.sol[key])))
-        assert gap < 25 * tol, (key, gap)
-    for key in ("lam", "mu"):
-        gap = np.max(np.abs(np.asarray(rf.sol[key])
-                            - np.asarray(rd.sol[key])))
-        assert gap < 100 * tol, (key, gap)
-    # warm start from the dense solution: near-immediate exit (the exit
-    # point sits at the tolerance boundary, so a few touch-up iterations
-    # are expected)
-    rws = s_f(x0, xr, ur, init=(rd.sol["z"], rd.sol["s"],
-                                rd.sol["lam"], rd.sol["mu"]))
-    assert int(np.max(np.asarray(rws.k))) <= 20
-
-
-def test_fused_split_check_every(fixture):
-    sys, param, st = fixture
-    kw = dict(rho=2.0, sigma=20.0, tol_p=1e-5, tol_d=1e-5, k_max=3000)
-    o = sp.default_options("HMPC", "SADMM", "split", pallas_interpret=True,
-                           tile_b=8, check_every=4, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, param, formulation="HMPC", method="SADMM",
-                         submethod="split", backend="fused", options=o)
-    od = sp.default_options("HMPC", "SADMM", "split", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, param, formulation="HMPC", method="SADMM",
-                         submethod="split", options=od)
-    B = 8
-    rng = np.random.default_rng(12)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    rf = s_f(x0, xr, ur)
-    rd = s_d(x0, xr, ur)
-    assert np.all(np.asarray(rf.e_flag) == 1)
-    kf, kd = np.asarray(rf.k), np.asarray(rd.k)
-    # pre-convergence trajectories differ at rounding level (permuted
-    # contraction), so the checked exit can land a few iterations either
-    # side of the dense one — but never a whole check window early
-    assert np.all(kf.astype(np.int64) >= kd.astype(np.int64) - 5)
-    assert np.all(np.asarray(rf.sol["r_p"]) <= 1e-5)
-    np.testing.assert_allclose(np.asarray(rf.u), np.asarray(rd.u),
-                               atol=1e-4)
-
-
 @pytest.mark.parametrize("method,use_soc",
                          [("ADMM", False), ("SADMM", True)])
 def test_banded_split_matches_dense(fixture, method, use_soc):
@@ -261,8 +139,7 @@ def test_banded_split_long_horizon_n120(fixture):
     structured KKT matches the dense M1/M2 path iterate-for-iterate.
     Fixed iteration count keeps the CPU test fast (full-convergence
     parity at N=120 was verified once: k=938 identical, gaps ~1e-12);
-    hardware throughput lives in tools/tpu_convergence_sweep.py and
-    BENCH_LONGN."""
+    device runs of the banded paths live in chip_smoke.py (P3)."""
     sys, param, st = fixture
     p = dict(param)
     p["N"] = 120
@@ -333,88 +210,3 @@ def test_banded_parallel_scan_matches_sequential(fixture, submethod):
         assert gap < 1e-8, (key, gap)
 
 
-@pytest.mark.parametrize("method", ["ADMM", "SADMM"])
-def test_fused_split_exact_k(fixture, method):
-    """exact_k free-run for the split kernel (VERDICT r4 next-#5): window
-    snapshot + per-iteration replay must reproduce the kernel's own
-    check_every=1 exact mode BIT-EXACTLY (k, e_flag, iterates) — the
-    per-iteration exit contract at free-run speed. (Dense parity is
-    roundoff-level for this kernel — the segment-permuted KKT matmul
-    contracts in a different order — so the bit-exact reference is the
-    kernel's exact mode, itself k-within-5 of dense above.)"""
-    sys, param, st = fixture
-    kw = dict(rho=2.0, sigma=20.0, tol_p=1e-5, tol_d=1e-5, k_max=3000)
-
-    def build(**extra):
-        o = sp.default_options("HMPC", method, "split",
-                               pallas_interpret=True, tile_b=8,
-                               **{**kw, **extra})
-        o.precision = "float"
-        return sp.make_solver(sys, param, formulation="HMPC",
-                              method=method, submethod="split",
-                              backend="fused", options=o)
-
-    s_exact = build()
-    s_ek = build(check_every=8, exact_k=True)
-    B = 8
-    rng = np.random.default_rng(13)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    r1 = s_exact(x0, xr, ur)
-    r2 = s_ek(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1.k), np.asarray(r2.k))
-    np.testing.assert_array_equal(np.asarray(r1.e_flag),
-                                  np.asarray(r2.e_flag))
-    for key in ("z", "s", "lam", "mu"):
-        np.testing.assert_array_equal(np.asarray(r1.sol[key]),
-                                      np.asarray(r2.sol[key]))
-    # k_max-capped path
-    s_exact_c = build(tol_p=1e-13, tol_d=1e-13, k_max=19)
-    s_ek_c = build(tol_p=1e-13, tol_d=1e-13, k_max=19, check_every=8,
-                   exact_k=True)
-    r1c = s_exact_c(x0, xr, ur)
-    r2c = s_ek_c(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1c.k), np.asarray(r2c.k))
-    for key in ("z", "s", "lam", "mu"):
-        np.testing.assert_array_equal(np.asarray(r1c.sol[key]),
-                                      np.asarray(r2c.sol[key]))
-
-
-@pytest.mark.parametrize("use_soc", [False, True])
-def test_fused_single_exact_k(fixture, use_soc):
-    """exact_k free-run for the single-split cone kernel: bit-identical
-    to its own check_every=1 exact mode (k, e_flag, iterates), including
-    the k_max-capped path."""
-    sys, param, st = fixture
-    kw = dict(rho=2.0, sigma=20.0, tol_p=1e-5, tol_d=1e-5, k_max=3000,
-              use_soc=use_soc)
-
-    def build(**extra):
-        o = sp.default_options("HMPC", "ADMM", "",
-                               pallas_interpret=True, tile_b=8,
-                               **{**kw, **extra})
-        o.precision = "float"
-        return sp.make_solver(sys, param, formulation="HMPC",
-                              method="ADMM", backend="fused", options=o)
-
-    B = 8
-    rng = np.random.default_rng(17)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    r1 = build()(x0, xr, ur)
-    r2 = build(check_every=8, exact_k=True)(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1.k), np.asarray(r2.k))
-    np.testing.assert_array_equal(np.asarray(r1.e_flag),
-                                  np.asarray(r2.e_flag))
-    for key in ("z", "s", "lam"):
-        np.testing.assert_array_equal(np.asarray(r1.sol[key]),
-                                      np.asarray(r2.sol[key]))
-    r1c = build(tol_p=1e-13, tol_d=1e-13, k_max=19)(x0, xr, ur)
-    r2c = build(tol_p=1e-13, tol_d=1e-13, k_max=19, check_every=8,
-                exact_k=True)(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1c.k), np.asarray(r2c.k))
-    for key in ("z", "s", "lam"):
-        np.testing.assert_array_equal(np.asarray(r1c.sol[key]),
-                                      np.asarray(r2c.sol[key]))

@@ -44,7 +44,7 @@ def test_vs_golden_optimum(solver, fixture):
 
 
 def test_vs_oracle(solver, fixture):
-    """Batched TPU solver vs dense numpy oracle: same iterates to 1e-9
+    """Batched solver vs dense numpy oracle: same iterates to 1e-9
     (the reference's sparse-vs-nonsparse differential contract,
     spcies_tester.m:260 tol 1e-10; we allow 1e-9 for fp reassociation)."""
     sys, param, st = fixture

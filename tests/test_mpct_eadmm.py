@@ -86,118 +86,3 @@ def test_rho_scalar_override(fixture):
         rho_base=2.0, rho_mult=1.0, tol=1e-5, k_max=5000)
     assert int(res.k[0]) == k_o
     assert np.max(np.abs(np.asarray(res.u[0]) - u_o)) < 1e-9
-
-
-# ---------------------------------------------------------------------------
-# fused VMEM-resident backend (kernels/fused_eadmm.py)
-# ---------------------------------------------------------------------------
-
-def _rand_batch(st, B, seed):
-    rng = np.random.default_rng(seed)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
-    return x0, np.tile(st["xr"], (B, 1)), np.tile(st["ur"], (B, 1))
-
-
-def test_fused_matches_dense(fixture):
-    """backend='fused' (kernels/fused_eadmm.py): same per-lane iteration
-    counts as the dense engine and fp32-roundoff iterate agreement
-    (interpret mode). The broadcast-layout C2m/C2t fold contracts in a
-    different order than the dense couple()/a2t chain, so exits at the
-    tolerance boundary may shift by a few iterations."""
-    sys, param, st = fixture
-    kw = dict(rho_base=2.0, rho_mult=20.0, tol=1e-5, k_max=3000)
-    o = sp.default_options("MPCT", "EADMM", pallas_interpret=True,
-                           tile_b=8, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                         backend="fused", options=o)
-    od = sp.default_options("MPCT", "EADMM", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                         options=od)
-    x0, xr, ur = _rand_batch(st, 8, 21)
-    rf = s_f(x0, xr, ur)
-    rd = s_d(x0, xr, ur)
-    assert np.all(np.asarray(rf.e_flag) == 1)
-    assert np.max(np.abs(np.asarray(rf.k, np.int64)
-                         - np.asarray(rd.k, np.int64))) <= 5
-    for key in ("z1", "z2", "z3"):
-        gap = np.max(np.abs(np.asarray(rf.sol[key])
-                            - np.asarray(rd.sol[key])))
-        assert gap < 25 * 1e-5, (key, gap)
-    gap = np.max(np.abs(np.asarray(rf.sol["lam"])
-                        - np.asarray(rd.sol["lam"])))
-    assert gap < 100 * 1e-5, ("lam", gap)
-    assert np.max(np.abs(np.asarray(rf.u) - np.asarray(rd.u))) < 25 * 1e-5
-    # warm start from the dense solution: near-immediate exit
-    rws = s_f(x0, xr, ur, init=(rd.sol["z1"], rd.sol["z2"],
-                                rd.sol["z3"], rd.sol["lam"]))
-    assert int(np.max(np.asarray(rws.k))) <= 20
-
-
-def test_fused_check_every(fixture):
-    """check_every>1 free-runs windows: converged fraction and iterates
-    match; k is recorded at window granularity (>= dense k)."""
-    sys, param, st = fixture
-    kw = dict(rho_base=2.0, rho_mult=20.0, tol=1e-5, k_max=3000)
-    o = sp.default_options("MPCT", "EADMM", pallas_interpret=True,
-                           tile_b=8, check_every=4, **kw)
-    o.precision = "float"
-    s_f = sp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                         backend="fused", options=o)
-    od = sp.default_options("MPCT", "EADMM", **kw)
-    od.precision = "float"
-    s_d = sp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                         options=od)
-    x0, xr, ur = _rand_batch(st, 8, 22)
-    rf = s_f(x0, xr, ur)
-    rd = s_d(x0, xr, ur)
-    assert np.all(np.asarray(rf.e_flag) == 1)
-    assert np.all(np.asarray(rf.k, np.int64)
-                  >= np.asarray(rd.k, np.int64) - 5)
-    assert np.max(np.abs(np.asarray(rf.u) - np.asarray(rd.u))) < 25 * 1e-5
-
-
-def test_fused_requires_float(fixture):
-    sys, param, _ = fixture
-    with pytest.raises(ValueError, match="fp32"):
-        sp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                       backend="fused", **OPTS)
-
-
-def test_eadmm_fused_exact_k(fixture):
-    """exact_k for the three-block EADMM kernel: bit-identical to its own
-    check_every=1 exact mode (full 9-leaf state snapshot + replay),
-    including the k_max-capped path."""
-    sys, param, st = fixture
-
-    def build(**extra):
-        kw = dict(rho_base=2.0, rho_mult=20.0, tol=1e-5, k_max=3000)
-        o = sp.default_options("MPCT", "EADMM", "",
-                               pallas_interpret=True, tile_b=8,
-                               **{**kw, **extra})
-        o.precision = "float"
-        return sp.make_solver(sys, param, formulation="MPCT",
-                              method="EADMM", backend="fused", options=o)
-
-    import numpy as np
-    B = 8
-    rng = np.random.default_rng(23)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2, 2, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    r1 = build()(x0, xr, ur)
-    r2 = build(check_every=8, exact_k=True)(x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1.k), np.asarray(r2.k))
-    np.testing.assert_array_equal(np.asarray(r1.e_flag),
-                                  np.asarray(r2.e_flag))
-    for key in ("z1", "z2", "z3", "lam"):
-        np.testing.assert_array_equal(np.asarray(r1.sol[key]),
-                                      np.asarray(r2.sol[key]))
-    r1c = build(tol=1e-13, k_max=19)(x0, xr, ur)
-    r2c = build(tol=1e-13, k_max=19, check_every=8, exact_k=True)(
-        x0, xr, ur)
-    np.testing.assert_array_equal(np.asarray(r1c.k), np.asarray(r2c.k))
-    for key in ("z1", "z2", "z3", "lam"):
-        np.testing.assert_array_equal(np.asarray(r1c.sol[key]),
-                                      np.asarray(r2c.sol[key]))

@@ -105,95 +105,3 @@ def test_shard_map_batch_divisibility_error(solver_and_data):
     solve = sp.parallel.shard_map_solver(solver, mesh)
     with pytest.raises(ValueError, match="divisible"):
         solve(x0[:5], xr[:5], ur[:5])
-
-
-@pytest.fixture(scope="module")
-def fused_solver_and_data():
-    sys_, param, st = sp.systems.tester_fixture()
-    o = sp.default_options("laxMPC", "ADMM", pallas_interpret=True,
-                           tile_b=8, rho=15.0, tol=1e-5, k_max=3000)
-    o.precision = "float"
-    solver = sp.make_solver(sys_, param, formulation="laxMPC",
-                            method="ADMM", backend="fused", options=o)
-    B = 32
-    rng = np.random.default_rng(5)
-    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2, 2, (B, 1))
-    xr = np.tile(st["xr"], (B, 1))
-    ur = np.tile(st["ur"], (B, 1))
-    return solver, x0, xr, ur
-
-
-def test_shard_map_fused_backend(fused_solver_and_data):
-    """The production fused Pallas backend composes with shard_map
-    (VERDICT r2 next-#1): per-lane results are BIT-IDENTICAL to running
-    the fused solver on each shard separately, i.e. sharding adds zero
-    numerical effect. (Vs the full-batch plain call, lanes can shift +-1
-    iteration at tolerance boundaries because XLA's fp32 GEMM rounding
-    depends on the batch shape — same caveat as the fused-vs-dense
-    tests.)"""
-    solver, x0, xr, ur = fused_solver_and_data
-    mesh = sp.parallel.host_chip_mesh()
-    solve = sp.parallel.shard_map_solver(solver, mesh)
-    res = solve(x0, xr, ur)
-    assert np.all(np.asarray(res.e_flag) == 1)
-    ks = np.asarray(res.k)
-    n_dev = mesh.size
-    shard = x0.shape[0] // n_dev
-    for s in range(n_dev):
-        sl = slice(s * shard, (s + 1) * shard)
-        rp = solver(x0[sl], xr[sl], ur[sl])
-        np.testing.assert_array_equal(ks[sl], np.asarray(rp.k))
-        for key in ("z", "v", "lam"):
-            np.testing.assert_array_equal(np.asarray(res.sol[key][sl]),
-                                          np.asarray(rp.sol[key]))
-    assert res.u.sharding.is_equivalent_to(
-        jax.sharding.NamedSharding(mesh, sp.parallel.batch_spec(mesh)),
-        res.u.ndim)
-
-
-def test_shard_map_fused_no_hotloop_collectives(fused_solver_and_data):
-    """No-collective HLO assertion repeated for the FUSED solve (the r2
-    assertion covered only the dense engine): the compiled shard_map
-    program containing the Pallas kernel must have zero cross-device
-    collectives anywhere (the kernel runs the whole loop per-device)."""
-    solver, x0, xr, ur = fused_solver_and_data
-    mesh = sp.parallel.host_chip_mesh()
-    from jax.sharding import NamedSharding
-    from jax import shard_map
-    spec = sp.parallel.batch_spec(mesh)
-    fn = shard_map(lambda a, b, c: solver.raw_fn(a, b, c, None, None),
-                   mesh=mesh, in_specs=(spec,) * 3, out_specs=spec,
-                   check_vma=False)
-    args = [jax.device_put(np.asarray(a, np.float32),
-                           NamedSharding(mesh, spec))
-            for a in (x0, xr, ur)]
-    compiled = jax.jit(fn).lower(*args).compile()
-    hlo = compiled.as_text()
-    for coll in ("all-reduce", "all-gather", "collective-permute",
-                 "reduce-scatter", "all-to-all"):
-        assert coll not in hlo, f"{coll} found in compiled fused solve"
-
-
-def test_shard_map_fused_exact_k(fused_solver_and_data):
-    """exact_k free-run mode (the headline bench lane) under shard_map:
-    same shard-wise bit-exactness contract."""
-    sys_, param, st = sp.systems.tester_fixture()
-    o = sp.default_options("laxMPC", "ADMM", pallas_interpret=True,
-                           tile_b=8, rho=15.0, tol=1e-5, k_max=3000,
-                           check_every=8, exact_k=True)
-    o.precision = "float"
-    solver = sp.make_solver(sys_, param, formulation="laxMPC",
-                            method="ADMM", backend="fused", options=o)
-    _, x0, xr, ur = fused_solver_and_data
-    mesh = sp.parallel.host_chip_mesh()
-    solve = sp.parallel.shard_map_solver(solver, mesh)
-    res = solve(x0, xr, ur)
-    assert np.all(np.asarray(res.e_flag) == 1)
-    shard = x0.shape[0] // mesh.size
-    for s in range(mesh.size):
-        sl = slice(s * shard, (s + 1) * shard)
-        rp = solver(x0[sl], xr[sl], ur[sl])
-        np.testing.assert_array_equal(np.asarray(res.k[sl]),
-                                      np.asarray(rp.k))
-        np.testing.assert_array_equal(np.asarray(res.sol["v"][sl]),
-                                      np.asarray(rp.sol["v"]))

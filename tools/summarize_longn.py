@@ -1,6 +1,6 @@
 """Summarize a BENCH_LONGN artifact as a per-family crossover table.
 
-    python tools/summarize_longn.py [BENCH_LONGN_r04.json]
+    python tools/summarize_longn.py BENCH_LONGN.json
 
 Prints, per (family, N): solves/s for each backend, the winner, and the
 measured memory; flags infeasible (OOM) cells. Used to keep docs/MPC.md
@@ -49,4 +49,6 @@ def main(path):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "BENCH_LONGN_r04.json")
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    main(sys.argv[1])
